@@ -1,0 +1,291 @@
+"""The RGB batch 2-D LP kernel for Hopper: wrapper, plain version, tile pick.
+
+``rgb_cuda`` launches the hand-written CUDA C++ kernel in
+``csrc/batch_lp.cu`` (built at first use by :mod:`._build`, loaded with
+ctypes).  It replaces the TPU kernel
+``src/repro/kernels/batch_lp.py::_rgb_kernel`` (launcher ``rgb_pallas``)
+and keeps its contract: packed constraints ``L (B, 4, m_pad)`` with rows
+``(a_x, a_y, b, 0)``, ``c (B, 2)``, ``m_valid (B, 1) int32`` in;
+``x (B, 2)``, ``feas (B, 1) int32`` out; float32 and float64;
+``B % tile == 0``, ``m_pad % LANE == 0``, ``m_pad % chunk == 0``.
+
+What bounds the kernel on an H100: nominally bytes (each constraint is
+read once, ~10 flops per constraint tested), in practice the latency of
+the incremental dependency chain.  The design (one warp per problem, 32
+constraints tested per step by ballot, warp-shuffle min/max for the 1-D
+re-solve) is described at the top of the CUDA source.
+
+``rgb_plain`` is the same function in plain PyTorch ops (closed-form box
+faces like the kernel).  The tests use it, ``chip_smoke.py`` holds the
+kernel against it on the card, and the wrapper takes it for a tensor that
+lies on the CPU — and only then: for a CUDA tensor ``rgb_cuda`` launches
+the kernel or raises.  ``rgb_cuda.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Optional
+
+import torch
+
+from repro_torch.core import oneD
+
+# Constraint counts are padded to a multiple of LANE.  The number is the
+# reference's (its TPU lane width); the port keeps it so identical padded
+# arrays feed both packages and the serving ladder is the same.  The CUDA
+# kernel itself only needs m_pad % chunk == 0.
+LANE = 128
+
+# Warps in one CTA.  Each warp solves one problem at a time.  ptxas reports
+# 51 registers a thread for the float32 kernel and 74 for float64, so an
+# SM's 65,536 registers hold four 8-warp CTAs in float32 (32 of its 64
+# warp slots) and three in float64: registers, not the CTA size, cap
+# residency, and 8 warps keep the granularity of that cap small while a
+# CTA still amortises its launch over several problems.
+WARPS_PER_CTA = 8
+
+# Problems per CTA when nothing says otherwise: one per warp.
+DEFAULT_TILE = WARPS_PER_CTA
+
+
+def _pick_tile(batch: Optional[int] = None) -> int:
+    """Problems per CTA for the Hopper kernel.
+
+    The kernel stages nothing in shared memory and keeps one problem's
+    state in a warp's registers, so neither shared memory nor the
+    problems' width or element size limit the tile: only the batch
+    enters.  What the tile does decide:
+
+    * a CTA lasts as long as its slowest warp's walk over
+      ``tile / warps`` problems, and the card wants many more CTAs than
+      its 132 SMs hold at once to even that out — small tiles win;
+    * the batch is padded up to a multiple of the tile with neutral
+      problems — small tiles waste fewer rows;
+    * below one problem per warp the CTA's other warps idle.
+
+    So: one problem per warp (``DEFAULT_TILE``), clamped to the batch
+    when that is smaller.
+    """
+    t = DEFAULT_TILE
+    if batch is not None:
+        t = min(t, max(1, batch))
+    return t
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version
+# ---------------------------------------------------------------------------
+
+def _plain_tile(ax, ay, bb, c, mv, *, M, chunk, stats=None):
+    """One tile of the plain version: ax/ay/bb (T, m_pad), c (T, 2),
+    mv (T, 1).  Per-problem scalars are kept (T, 1)."""
+    T, m_pad = ax.shape
+    dt, dev = ax.dtype, ax.device
+    cx, cy = c[:, 0:1], c[:, 1:2]
+    cpx, cpy = -cy, cx        # perpendicular (tie-break) objective
+    big = torch.finfo(dt).max
+    x = torch.cat([oneD.sign_tie_break(cx, cpx) * M,
+                   oneD.sign_tie_break(cy, cpy) * M], dim=1)  # (T, 2)
+    feas = torch.ones((T, 1), dtype=torch.bool, device=dev)
+    if T == 0:
+        return x, feas
+    h_iota = torch.arange(m_pad, device=dev)[None, :]
+    max_mv = min(int(mv.max()), m_pad)
+
+    for i in range(max_mv):
+        a_ix, a_iy, b_i = ax[:, i:i + 1], ay[:, i:i + 1], bb[:, i:i + 1]
+        lhs = a_ix * x[:, 0:1] + a_iy * x[:, 1:2]
+        violated = feas & (i < mv) & (lhs > b_i + oneD.EPS_FEAS)  # (T, 1)
+        if not bool(violated.any()):
+            continue
+        if stats is not None:
+            n = int(violated.sum())
+            stats["resolves"] = stats.get("resolves", 0) + n
+            stats["resolve_work"] = stats.get("resolve_work", 0) + n * i
+        # Line frame: p0 = a_i * b_i (unit normals), u = perp(a_i).
+        p0x, p0y = a_ix * b_i, a_iy * b_i
+        ux, uy = -a_iy, a_ix
+        # sigma bounds over prior constraints h < i (paper eqs. 3-4).
+        limit = -(-i // chunk) * chunk if chunk else m_pad
+        axc, ayc, bbc = ax[:, :limit], ay[:, :limit], bb[:, :limit]
+        denom = axc * ux + ayc * uy
+        num = bbc - (axc * p0x + ayc * p0y)
+        is_par = denom.abs() <= oneD.EPS_DENOM
+        t = num / torch.where(is_par, 1.0, denom)  # guarded divide
+        mask = h_iota[:, :limit] < i
+        hi = torch.where(mask & (denom > oneD.EPS_DENOM), t, big)
+        lo = torch.where(mask & (denom < -oneD.EPS_DENOM), t, -big)
+        par_bad = (mask & is_par & (num < -oneD.EPS_FEAS)).any(
+            dim=1, keepdim=True)
+        if limit:
+            t_lo = lo.amax(dim=1, keepdim=True)
+            t_hi = hi.amin(dim=1, keepdim=True)
+        else:   # i == 0 under chunking: no prior constraint to scan
+            t_lo = torch.full((T, 1), -big, dtype=dt, device=dev)
+            t_hi = torch.full((T, 1), big, dtype=dt, device=dev)
+        # The four box bounds, in closed form.
+        for bd, bn in ((ux, M - p0x), (-ux, M + p0x),
+                       (uy, M - p0y), (-uy, M + p0y)):
+            q = bn / torch.where(bd.abs() > oneD.EPS_DENOM, bd, 1.0)
+            t_hi = torch.minimum(
+                t_hi, torch.where(bd > oneD.EPS_DENOM, q, big))
+            t_lo = torch.maximum(
+                t_lo, torch.where(bd < -oneD.EPS_DENOM, q, -big))
+            par_bad = par_bad | (
+                (bd.abs() <= oneD.EPS_DENOM) & (bn < -oneD.EPS_FEAS))
+        feas_new = (t_lo <= t_hi + oneD.EPS_FEAS) & ~par_bad
+        # Objective endpoint selection (tie -> perpendicular objective).
+        cu = cx * ux + cy * uy
+        cpu = cpx * ux + cpy * uy
+        pick_hi = torch.where(cu.abs() > oneD.EPS_TIE, cu > 0.0, cpu > 0.0)
+        tt = torch.where(pick_hi, t_hi, t_lo)
+        x_new = torch.cat([p0x + tt * ux, p0y + tt * uy], dim=1)
+        x = torch.where(violated, x_new, x)
+        feas = torch.where(violated, feas & feas_new, feas)
+    return x, feas
+
+
+def _check_launch(L, c, m_valid, tile, chunk):
+    """Shared launcher contract: the reference's three ``ValueError``s
+    plus shape/dtype sanity.  Returns ``(B, m_pad, tile)``."""
+    if L.ndim != 3 or L.shape[1] != 4:
+        raise ValueError(f"L must be (B, 4, m_pad), got {tuple(L.shape)}")
+    B, _, m_pad = L.shape
+    if L.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"L must be float32 or float64, got {L.dtype}")
+    if c.shape != (B, 2) or c.dtype != L.dtype:
+        raise ValueError(
+            f"c must be ({B}, 2) {L.dtype}, got {tuple(c.shape)} {c.dtype}")
+    if m_valid.shape != (B, 1) or m_valid.dtype != torch.int32:
+        raise ValueError(
+            f"m_valid must be ({B}, 1) int32, got {tuple(m_valid.shape)} "
+            f"{m_valid.dtype}")
+    if c.device != L.device or m_valid.device != L.device:
+        raise ValueError(
+            f"L, c and m_valid must share a device, got {L.device}, "
+            f"{c.device}, {m_valid.device}")
+    T = tile or _pick_tile(B)
+    if T < 1:
+        raise ValueError(f"tile {T} < 1")
+    if B % T:
+        raise ValueError(f"batch {B} not a multiple of tile {T}")
+    if m_pad % LANE:
+        raise ValueError(f"m_pad {m_pad} not a multiple of {LANE}")
+    if chunk < 0:
+        raise ValueError(f"chunk {chunk} < 0")
+    if chunk and m_pad % chunk:
+        raise ValueError(f"m_pad {m_pad} % chunk {chunk} != 0")
+    return B, m_pad, T
+
+
+def rgb_plain(
+    L: torch.Tensor,        # (B, 4, m_pad) packed constraints, unit normals
+    c: torch.Tensor,        # (B, 2)
+    m_valid: torch.Tensor,  # (B, 1) int32
+    *,
+    M: float,
+    tile: Optional[int] = None,
+    chunk: int = 0,         # 0 = dense re-solve; >0 = chunked O(i) re-solve
+    stats: Optional[dict] = None,
+):
+    """The kernel's function in plain PyTorch ops, on whatever device the
+    tensors lie: ``(x (B, 2), feas (B, 1) int32)``.  Tiles are walked in
+    a Python loop; within a tile the re-solve is skipped when no problem
+    is violated (a host ``if``).  Per-problem results do not depend on
+    ``tile``.  ``stats``, when given, accumulates ``resolves`` (re-solves
+    taken) and ``resolve_work`` (prior constraints they had to scan) —
+    the data-dependent work the kernel's roofline bound counts."""
+    B, m_pad, T = _check_launch(L, c, m_valid, tile, chunk)
+    M = float(M)
+    xs, fs = [], []
+    for lo in range(0, B, T):
+        x, feas = _plain_tile(L[lo:lo + T, 0, :], L[lo:lo + T, 1, :],
+                              L[lo:lo + T, 2, :], c[lo:lo + T],
+                              m_valid[lo:lo + T], M=M, chunk=chunk,
+                              stats=stats)
+        xs.append(x)
+        fs.append(feas)
+    if not xs:
+        return (torch.zeros((0, 2), dtype=L.dtype, device=L.device),
+                torch.zeros((0, 1), dtype=torch.int32, device=L.device))
+    return torch.cat(xs), torch.cat(fs).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's wrapper
+# ---------------------------------------------------------------------------
+
+_launch_lock = threading.Lock()
+_bound = {}
+
+
+def _launcher(dtype: torch.dtype):
+    """The ctypes entry point for ``dtype`` (builds the library at first
+    use).  ``argtypes`` are set so pointers and the stream travel as
+    64-bit values."""
+    fn = _bound.get(dtype)
+    if fn is not None:
+        return fn
+    from repro_torch.kernels import _build
+    lib = _build.load("batch_lp")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name in ("rgb_launch_f32", "rgb_launch_f64"):
+        f = getattr(lib, name)
+        f.argtypes = [p, p, p, p, p, i, i, i, i, ctypes.c_double, i, p]
+        f.restype = ctypes.c_int
+    lib.rgb_error_string.argtypes = [ctypes.c_int]
+    lib.rgb_error_string.restype = ctypes.c_char_p
+    _bound[torch.float32] = lib.rgb_launch_f32
+    _bound[torch.float64] = lib.rgb_launch_f64
+    _bound["error_string"] = lib.rgb_error_string
+    return _bound[dtype]
+
+
+def rgb_cuda(
+    L: torch.Tensor,        # (B, 4, m_pad) packed constraints, unit normals
+    c: torch.Tensor,        # (B, 2)
+    m_valid: torch.Tensor,  # (B, 1) int32
+    *,
+    M: float,
+    tile: Optional[int] = None,
+    chunk: int = 0,         # 0 = dense re-solve; >0 = chunked O(i) re-solve
+):
+    """Launch the RGB kernel: ``(x (B, 2), feas (B, 1) int32)``.
+
+    ``B`` must be a multiple of the tile and ``m_pad`` a multiple of
+    ``LANE`` (``solver._solve_kernel`` pads both).  On CUDA tensors the
+    kernel is enqueued on PyTorch's current stream of the tensors'
+    device, without synchronising; a refused launch raises.  On CPU
+    tensors — and only there — the plain version runs instead.
+    """
+    B, m_pad, T = _check_launch(L, c, m_valid, tile, chunk)
+    if L.device.type == "cpu":
+        return rgb_plain(L, c, m_valid, M=M, tile=T, chunk=chunk)
+    if L.device.type != "cuda":
+        raise ValueError(f"rgb_cuda: unsupported device {L.device}")
+    for name, t in (("L", L), ("c", c), ("m_valid", m_valid)):
+        if not t.is_contiguous():
+            raise ValueError(f"rgb_cuda: {name} must be contiguous")
+    x = torch.empty((B, 2), dtype=L.dtype, device=L.device)
+    feas = torch.empty((B, 1), dtype=torch.int32, device=L.device)
+    if B == 0:
+        return x, feas
+    fn = _launcher(L.dtype)
+    with torch.cuda.device(L.device):
+        stream = torch.cuda.current_stream(L.device).cuda_stream
+        code = fn(L.data_ptr(), c.data_ptr(), m_valid.data_ptr(),
+                  x.data_ptr(), feas.data_ptr(), B, m_pad, T, int(chunk),
+                  float(M), min(T, WARPS_PER_CTA), stream)
+    if code != 0:
+        msg = _bound["error_string"](code).decode(errors="replace")
+        raise RuntimeError(
+            f"rgb_cuda: launch refused (cuda error {code}: {msg}) for "
+            f"B={B} m_pad={m_pad} tile={T} chunk={chunk} {L.dtype}")
+    with _launch_lock:
+        rgb_cuda.launches += 1
+    return x, feas
+
+
+# Kernel launches made by this process (plain-version calls do not count).
+rgb_cuda.launches = 0

@@ -1,0 +1,218 @@
+"""`Solver` — a reusable executor for one :class:`SolverSpec` on one device.
+
+``spec.build()`` resolves ``"auto"`` choices against the solver's device
+(the card unless the caller passes ``device="cpu"``) and returns a Solver
+that
+
+* moves each batch to its device (a no-op when it is already there) and
+  solves it (``solve``);
+* stays a plain function: ``solver(batch)`` is ``solve_with_spec`` with
+  the solver's spec;
+* offers ``solve_one(A, b, c)`` for the single-LP convenience case.
+
+``solve_with_spec`` is the underlying pure function.  Every layer — the
+serving executables in ``serve_lp.sharding`` included — runs through it,
+which is what makes "same problem, every backend, bit-for-bit comparable"
+a one-liner.  It resolves the spec against the device the batch's tensors
+lie on, so a CUDA batch goes to the CUDA kernel and a CPU batch to the
+plain ops; it never moves data.
+
+Both entry points accept either constraint layout: the AoS
+:class:`~repro_torch.core.lp.LPBatch` or the packed SoA
+:class:`~repro_torch.core.packed.PackedLPBatch`.  A packed batch stays
+packed end-to-end — normalise/shuffle run in their packed-native forms,
+the kernel backend consumes ``L`` directly, and the dense backends consume
+the ``L`` component rows directly too.  The AoS entry slices its normals
+into the same rows, so both layouts run the identical ops and
+``solve(pack(batch))`` is bit-identical to ``solve(batch)``.  (One caveat:
+padding the constraint axis — in *either* layout — changes the score
+shape ``shuffle`` draws from, so for ``shuffle=True`` specs the identity
+needs matching ``m``; a padded batch still agrees on the optimum to the
+usual tolerance, just not bit-for-bit.)
+
+Launch geometry left unset on the spec (``tile``/``chunk`` ``None``) is
+pinned here per input shape via
+:meth:`~repro_torch.solver.spec.SolverSpec.resolve_for_shape` — explicit
+values win, then the measured :mod:`repro_torch.tune` table for this
+device, then the static heuristics.
+
+There is no compile cache (PyTorch runs eagerly; the CUDA kernel is built
+once per process): ``cache_info`` is bookkeeping of the distinct shapes
+solved.
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+from repro_torch.core.lp import (LPBatch, LPSolution, _objective,
+                                 make_batch, normalize_batch, shuffle_batch)
+from repro_torch.core.packed import (PackedLPBatch, normalize_packed, pack,
+                                     pad_packed, pad_packed_batch_dim,
+                                     shuffle_packed)
+from repro_torch.core.seidel import (solve_naive, solve_naive_packed,
+                                     solve_rgb, solve_rgb_packed)
+from repro_torch.device import DeviceLike, as_device
+from repro_torch.solver.spec import RGB_DEFAULT_TILE, SolverSpec
+
+AnyLPBatch = Union[LPBatch, PackedLPBatch]
+
+_TORCH_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def _pdhg_not_ported() -> NotImplementedError:
+    return NotImplementedError(
+        "backend='pdhg' is not ported to repro_torch yet (ROADMAP.md, "
+        "queue A, item 'pdhg/'); use 'naive', 'rgb', 'kernel' or 'auto'")
+
+
+def solve_with_spec(spec: SolverSpec, batch: AnyLPBatch,
+                    generator: Optional[torch.Generator] = None
+                    ) -> LPSolution:
+    """Solve ``batch`` (AoS or packed) per ``spec``, on the device the
+    batch lies on.
+
+    ``generator`` overrides the spec's shuffle policy for this call; with
+    ``generator=None`` the batch is shuffled iff ``spec.shuffle`` (seeded
+    by ``spec.seed``).
+    """
+    is_packed = isinstance(batch, PackedLPBatch)
+    m = batch.m_pad if is_packed else batch.m
+    device = batch.device
+    spec = spec.resolve_for_shape(m, batch.batch, platform=device.type)
+    if spec.backend == "pdhg":
+        raise _pdhg_not_ported()
+    dt = _TORCH_DTYPES[spec.dtype]
+    if generator is None and spec.shuffle:
+        generator = torch.Generator(device=device).manual_seed(spec.seed)
+    if is_packed:
+        return _solve_packed(spec, batch, dt, generator)
+    # Cast each tensor (``to`` is the identity when already dt): A alone
+    # matching must not let a mixed-dtype b or c leak through.
+    batch = LPBatch(A=batch.A.to(dt), b=batch.b.to(dt),
+                    c=batch.c.to(dt), m_valid=batch.m_valid)
+    if spec.normalize:
+        batch = normalize_batch(batch)
+    if generator is not None:
+        batch = shuffle_batch(generator, batch)
+    if spec.backend == "kernel":
+        return _solve_kernel(spec, pack(batch))
+    return _solve_dense(spec, batch)
+
+
+def _solve_packed(spec: SolverSpec, pb: PackedLPBatch, dt,
+                  generator) -> LPSolution:
+    """The packed-native pipeline: cast -> normalise -> shuffle without
+    leaving the SoA layout, then hand the ``L`` rows straight to the
+    backend (kernel and dense alike — no unpack)."""
+    pb = PackedLPBatch(L=pb.L.to(dt), c=pb.c.to(dt), m_valid=pb.m_valid)
+    if spec.normalize:
+        pb = normalize_packed(pb)
+    if generator is not None:
+        pb = shuffle_packed(generator, pb)
+    if spec.backend == "kernel":
+        return _solve_kernel(spec, pb)
+    if spec.backend == "naive":
+        return solve_naive_packed(pb, M=spec.M)
+    return solve_rgb_packed(pb, M=spec.M,
+                            tile=spec.tile or RGB_DEFAULT_TILE,
+                            chunk=spec.chunk or 0)
+
+
+def _solve_dense(spec: SolverSpec, batch: LPBatch) -> LPSolution:
+    if spec.backend == "naive":
+        return solve_naive(batch, M=spec.M)
+    return solve_rgb(batch, M=spec.M,
+                     tile=spec.tile or RGB_DEFAULT_TILE,
+                     chunk=spec.chunk or 0)
+
+
+def _solve_kernel(spec: SolverSpec, pb: PackedLPBatch) -> LPSolution:
+    # Deferred import: kernels.ops wraps this package for its public
+    # compatibility surface, so the dependency must point one way only.
+    from repro_torch.kernels.batch_lp import (LANE, _pick_tile, rgb_cuda,
+                                              rgb_plain)
+
+    B = pb.batch
+    pb = pad_packed(pb, -(-pb.m_pad // LANE) * LANE)
+    tile = spec.tile or _pick_tile(B)
+    run = pad_packed_batch_dim(pb, -(-B // tile) * tile)
+    # ``interpret`` is the one explicit way to ask for the plain version;
+    # it resolves to True by itself only on the CPU platform.  Otherwise
+    # the wrapper launches the kernel (or raises) for CUDA tensors.
+    launch = rgb_plain if spec.interpret else rgb_cuda
+    x, feas = launch(run.L.contiguous(), run.c.contiguous(),
+                     run.m_valid.to(torch.int32).contiguous(),
+                     M=spec.M, tile=tile, chunk=spec.chunk or 0)
+    x, feas = x[:B], feas[:B, 0]
+    return LPSolution(
+        x=x,
+        feasible=feas.to(torch.bool),
+        objective=_objective(pb.c.to(x.dtype), x),
+    )
+
+
+class Solver:
+    """Executor for one resolved :class:`SolverSpec` on one device.
+
+    Construct via ``spec.build()`` (or :func:`~repro_torch.solver.spec.
+    get_solver` for the process-wide cached instance).  ``device=None``
+    means the card: :func:`repro_torch.device.default_device` raises when
+    there is none; pass ``device="cpu"`` to run on the CPU.
+    """
+
+    def __init__(self, spec: SolverSpec, device: DeviceLike = None):
+        if not isinstance(spec, SolverSpec):
+            raise TypeError(f"expected SolverSpec, got {type(spec)!r}")
+        self.device = as_device(device)
+        self.spec = spec.resolve(self.device.type)
+        if self.spec.backend == "pdhg":
+            raise _pdhg_not_ported()
+        # ``backend="auto"`` stays "auto" on the *solving* spec so each
+        # input shape can pick the fastest measured backend from the
+        # tuning table (``self.spec`` above is the introspection view
+        # and the choice on a table miss).  Note the process-wide
+        # :func:`~repro_torch.solver.spec.get_solver` cache keys on the
+        # resolved spec, so it pins "auto" to the platform default.
+        self._solve_spec = spec if spec.backend == "auto" else self.spec
+        self._shapes = set()
+
+    # -- plain-function entry point ---------------------------------------
+
+    def __call__(self, batch: AnyLPBatch,
+                 generator: Optional[torch.Generator] = None) -> LPSolution:
+        """``solve_with_spec`` with this solver's spec, on the device the
+        batch already lies on (no transfer, no bookkeeping)."""
+        return solve_with_spec(self._solve_spec, batch, generator)
+
+    # -- host entry points -------------------------------------------------
+
+    def solve(self, batch: AnyLPBatch,
+              generator: Optional[torch.Generator] = None) -> LPSolution:
+        """Solve one batch (AoS or packed) on this solver's device."""
+        batch = batch.to(self.device)
+        arr = batch.L if isinstance(batch, PackedLPBatch) else batch.A
+        self._shapes.add((type(batch).__name__, tuple(arr.shape),
+                          str(arr.dtype), generator is not None))
+        return solve_with_spec(self._solve_spec, batch, generator)
+
+    def solve_one(self, A, b, c,
+                  generator: Optional[torch.Generator] = None) -> LPSolution:
+        """Solve a single LP (``A (m,2)``, ``b (m,)``, ``c (2,)``);
+        returns an :class:`LPSolution` with the batch axis dropped."""
+        sol = self.solve(make_batch(A, b, c, device=self.device),
+                         generator=generator)
+        return LPSolution(x=sol.x[0], feasible=sol.feasible[0],
+                          objective=sol.objective[0])
+
+    # -- introspection ----------------------------------------------------
+
+    def cache_info(self) -> dict:
+        """Distinct (layout, shape, dtype, keyed) entries solved so far —
+        bookkeeping only: nothing is compiled per shape."""
+        return {"n_entries": len(self._shapes),
+                "shapes": sorted(str(k) for k in self._shapes)}
+
+    def __repr__(self) -> str:
+        return f"Solver({self.spec!r}, device={str(self.device)!r})"

@@ -1,0 +1,184 @@
+"""Checks that need an NVIDIA card: the hand-written CUDA kernel held against
+its plain PyTorch version on the same tensors, and the main path on the card.
+
+Run them on a machine with a Hopper card and ``nvcc``::
+
+    python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+Whether there is a card is decided inside the ``card`` fixture, when a test
+runs — never while this module is imported — so every pytest worker collects
+the same tests; without a card each test skips with a reason.  The kernel is
+built with ``--fmad=false`` and IEEE division, and the plain version's eager
+ops never fuse, so the two are expected to agree to the last bit; the stated
+tolerance (``x`` within 1e-4 in float32, 1e-9 in float64, ``feas`` exactly) is
+what a later, contracted build would be held to.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import (adversarial_lp, concat_batches, infeasible_lp,
+                              normalize_packed, pack_call_count, pad_packed,
+                              pad_packed_batch_dim, ragged_feasible_lp,
+                              random_feasible_lp)
+from repro_torch.kernels.batch_lp import LANE, rgb_cuda, rgb_plain
+from repro_torch.serve_lp import BatchScheduler
+from repro_torch.solver import SolverSpec
+
+pytestmark = pytest.mark.gpu
+
+M = 1.0e4
+X_TOL = {torch.float32: 1e-4, torch.float64: 1e-9}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _mixed_packed(device, dtype, batch=96, m=200, tile=8):
+    """Feasible, ragged, infeasible and adversarial problems in one padded,
+    normalised packed batch on ``device``."""
+    g = torch.Generator().manual_seed(5)
+    q = batch // 4
+    lp = concat_batches([
+        random_feasible_lp(g, q, m, dtype=dtype, device=device),
+        ragged_feasible_lp(g, q, m, dtype=dtype, device=device),
+        infeasible_lp(q, m, dtype=dtype, device=device),
+        adversarial_lp(q, m, dtype=dtype, device=device)])
+    pb = normalize_packed(pad_packed(lp.pack(), -(-m // LANE) * LANE))
+    pb = pad_packed_batch_dim(pb, -(-pb.batch // tile) * tile)
+    return pb.L.contiguous(), pb.c.contiguous(), pb.m_valid.contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("chunk", [0, 128])
+@pytest.mark.parametrize("tile", [1, 8, 32])
+def test_kernel_matches_plain(card, dtype, chunk, tile):
+    L, c, mv = _mixed_packed(card, dtype, tile=32)
+    n0 = rgb_cuda.launches
+    x, f = rgb_cuda(L, c, mv, M=M, tile=tile, chunk=chunk)
+    torch.cuda.synchronize()
+    assert rgb_cuda.launches == n0 + 1
+    xp, fp = rgb_plain(L, c, mv, M=M, tile=L.shape[0], chunk=chunk)
+    assert torch.equal(f, fp)
+    ok = fp[:, 0] != 0
+    assert float((x[ok] - xp[ok]).abs().max()) <= X_TOL[dtype]
+    assert int(ok.sum()) == 3 * (L.shape[0] // 4)
+
+
+def test_kernel_tile_and_chunk_invariance_in_bits(card):
+    L, c, mv = _mixed_packed(card, torch.float32, tile=32)
+    base = rgb_cuda(L, c, mv, M=M, tile=8, chunk=0)
+    for tile, chunk in ((1, 0), (32, 0), (96, 0), (8, 128), (32, 256)):
+        x, f = rgb_cuda(L, c, mv, M=M, tile=tile, chunk=chunk)
+        assert torch.equal(x, base[0]) and torch.equal(f, base[1])
+
+
+def test_kernel_pad_problems_and_clamped_m_valid(card):
+    L, c, mv = _mixed_packed(card, torch.float32, batch=20, tile=8)
+    x, f = rgb_cuda(L, c, mv, M=M, tile=8)
+    assert bool((f[20:] == 1).all())
+    assert torch.equal(x[20:], torch.tensor([[M, M]] * 4, device=card))
+    big = torch.full_like(mv, 10_000)
+    full = torch.full_like(mv, L.shape[2])
+    xa, fa = rgb_cuda(L, c, big, M=M, tile=8)
+    xb, fb = rgb_cuda(L, c, full, M=M, tile=8)
+    assert torch.equal(xa, xb) and torch.equal(fa, fb)
+
+
+def test_wrapper_raises_on_what_the_kernel_does_not_take(card):
+    L, c, mv = _mixed_packed(card, torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        rgb_cuda(L.transpose(1, 2).contiguous().transpose(1, 2), c, mv, M=M,
+                 tile=8)
+    with pytest.raises(ValueError, match="share a device"):
+        rgb_cuda(L, c.cpu(), mv, M=M, tile=8)
+    with pytest.raises(ValueError, match="not a multiple of tile"):
+        rgb_cuda(L, c, mv, M=M, tile=7)
+
+
+def test_refused_launch_is_reported(card):
+    """A block of 64 warps (2048 threads) is more than any card launches: the
+    C entry point returns the error code instead of running nothing
+    silently, and the library names it."""
+    from repro_torch.kernels import batch_lp
+    fn = batch_lp._launcher(torch.float32)
+    L, c, mv = _mixed_packed(card, torch.float32, batch=8, m=16)
+    x = torch.empty((8, 2), device=card)
+    f = torch.empty((8, 1), dtype=torch.int32, device=card)
+    code = fn(L.data_ptr(), c.data_ptr(), mv.data_ptr(), x.data_ptr(),
+              f.data_ptr(), 8, L.shape[2], 8, 0, M, 64,
+              torch.cuda.current_stream().cuda_stream)
+    assert code != 0
+    assert batch_lp._bound["error_string"](code)
+    # the card is still usable afterwards
+    x2, f2 = rgb_cuda(L, c, mv, M=M, tile=8)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(x2).all())
+
+
+def test_solver_on_the_card_goes_through_the_kernel(card):
+    g = torch.Generator().manual_seed(1)
+    lp = random_feasible_lp(g, 512, 100)            # default device: the card
+    assert lp.device == card
+    solver = SolverSpec(backend="auto").build()
+    assert solver.spec.backend == "kernel" and solver.spec.interpret is False
+    n0 = rgb_cuda.launches
+    aos, soa = solver.solve(lp), solver.solve(lp.pack())
+    assert rgb_cuda.launches == n0 + 2
+    assert torch.equal(aos.x, soa.x) and torch.equal(aos.feasible,
+                                                     soa.feasible)
+    plain = SolverSpec(backend="kernel", interpret=True,
+                       tile=512).build().solve(lp)
+    assert rgb_cuda.launches == n0 + 2              # interpret: no launch
+    assert torch.equal(plain.feasible, aos.feasible)
+    assert float((plain.x - aos.x).abs().max()) <= 1e-4
+    cpu = SolverSpec(backend="rgb").build(device="cpu").solve(lp.to("cpu"))
+    assert torch.equal(cpu.feasible, aos.feasible.cpu())
+    np.testing.assert_allclose(aos.x.cpu().numpy(), cpu.x.numpy(), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_flush_buffers_are_pinned_so_the_copy_in_is_asynchronous(card):
+    """The pool hands out numpy views of page-locked tensors; a tensor made
+    back from such a view (or from a row slice of it, as the per-device
+    dispatch does) must still count as pinned, or ``non_blocking=True``
+    silently degrades to a staged, synchronous copy."""
+    from repro_torch.serve_lp.scheduler import _FlushBufferPool
+    pool = _FlushBufferPool(pinned=True)
+    key, bufs = pool.lease(64, 128, np.float32)
+    for a in bufs:
+        assert torch.from_numpy(a).is_pinned()
+        assert torch.from_numpy(a[8:24]).is_pinned()
+    pool.release(key, bufs)
+    assert not torch.from_numpy(
+        _FlushBufferPool().lease(64, 128, np.float32)[1][0]).is_pinned()
+
+
+def test_scheduler_on_the_card_is_bit_identical_to_direct(card):
+    rng = np.random.default_rng(3)
+    reqs = []
+    for m in (3, 8, 37, 130, 200, 700) * 8:
+        theta = rng.uniform(0, 2 * np.pi, m)
+        A = np.stack([np.cos(theta), np.sin(theta)], -1).astype(np.float32)
+        b = (A @ rng.uniform(-10, 10, 2) + rng.uniform(0.1, 3.0, m)).astype(
+            np.float32)
+        reqs.append((A, b, np.array([1.0, 0.5], np.float32)))
+    spec = SolverSpec(backend="kernel")
+    n0, p0 = rgb_cuda.launches, pack_call_count()
+    with BatchScheduler(spec, max_batch=16, max_wait_s=0.002) as sched:
+        assert sched.buffers.pinned and sched.n_devices >= 1
+        futs = [sched.submit(*r) for r in reqs]
+        results = [f.result(timeout=120) for f in futs]
+        sched.drain()
+        snap = sched.metrics.snapshot()
+    assert rgb_cuda.launches - n0 == snap["launches_total"] > 0
+    assert pack_call_count() == p0 and snap["errors"] == {}
+    solver = spec.build()
+    for (A, b, c), r in zip(reqs, results):
+        d = solver.solve_one(A, b, c)
+        assert r.feasible and bool(d.feasible)
+        np.testing.assert_array_equal(d.x.cpu().numpy(), r.x)
