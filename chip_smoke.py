@@ -16,11 +16,15 @@ line:
    sm_90a; seconds, registers / shared memory / spills per kernel.
 3. ``kernels`` every ``rgb_cuda`` variant (float32 dense, float32
    ``chunk=128``, float64 dense) at ``B=16384, m_pad=256`` and
-   ``B=2048, m_pad=2048`` against its plain PyTorch version on the same
-   tensors (feasible, ragged, infeasible and adversarial problems): 0
-   feasibility mismatches, ``x`` within 1e-4 (float32) / 1e-9 (float64),
-   dense and chunked equal bit for bit; its time beside the least time the
-   card could take for the same work.  After phase 5 the same is done at
+   ``B=2048, m_pad=2048`` (problems staged in shared memory) and at
+   ``B=64, m_pad=19456`` (too wide to stage: the kernel's global-memory
+   regime) against its plain PyTorch version on the same tensors
+   (feasible, ragged, infeasible and adversarial problems): 0 feasibility
+   mismatches, ``x`` within 1e-4 (float32) / 1e-9 (float64), dense and
+   chunked equal bit for bit (a zero's sign included); its time beside
+   the least time the card could take for the same work, and its launch
+   geometry (warps per CTA,
+   dynamic shared memory, staged or not).  After phase 5 the same is done at
    every shape, tile and chunk the serving run really launched the kernel
    with (read from the scheduler's executable cache).  The ``kernels``
    line is printed once, near the end, with the launch counts of phases 4
@@ -55,8 +59,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 SEED = 20190213
 # The paper's figure-3 batch and the README's example width; a second,
-# wide shape whose problems are 2048 constraints long.
-SHAPES = ((16384, 256), (2048, 2048))
+# wide shape whose problems are 2048 constraints long; a third whose
+# problems are too wide for one warp's shared memory even in float32
+# (the first m_pad past 19,328), so the kernel reads global memory.
+SHAPES = ((16384, 256), (2048, 2048), (64, 19456))
 VARIANTS = (("float32", 0), ("float32", 128), ("float64", 0))
 X_TOL = {"float32": 1e-4, "float64": 1e-9}
 # Published peaks of one H100 SXM: HBM bytes/s, FLOP/s outside the tensor
@@ -168,7 +174,9 @@ def phase_build(card: str) -> None:
 
 
 def time_launches(fn, n_warm: int = 3, n: int = 20) -> float:
-    """Milliseconds per call of ``fn`` by CUDA events over ``n`` calls."""
+    """Milliseconds per call of ``fn`` by CUDA events over ``n`` eager
+    calls: the device's time where it is the bottleneck, else the host's
+    time to make one call (Python wrapper, allocation, launch)."""
     for _ in range(n_warm):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -177,6 +185,31 @@ def time_launches(fn, n_warm: int = 3, n: int = 20) -> float:
     start.record()
     for _ in range(n):
         fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / n
+
+
+def time_device(fn, n: int = 20) -> float:
+    """Milliseconds of device time per call of ``fn``: ``n`` calls
+    captured in one CUDA graph and replayed back to back, timed by CUDA
+    events, so the host's cost of a call does not enter."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / n
@@ -196,6 +229,11 @@ def bound_ms(B, m_pad, dtype, mv_sum, resolve_work):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
 
 
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """A float tensor's bit patterns (``torch.equal`` takes -0 == +0)."""
+    return t.view({4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
 def check_inputs(rng, B: int, m_pad: int):
     """The two batches a kernel entry is checked on: a mixed one, and the
     full-width feasible one that is also timed."""
@@ -211,7 +249,8 @@ def hold_and_time(device, card: str, inputs, B: int, m_pad: int, dtype: str,
     the second.  ``dense_out`` carries the dense variant's outputs to the
     chunked one of the same inputs and dtype, which must equal them bit
     for bit."""
-    from repro_torch.kernels.batch_lp import rgb_cuda, rgb_plain
+    from repro_torch.kernels.batch_lp import (launch_geometry, rgb_cuda,
+                                              rgb_plain)
     M = 1.0e4
     mixed, timed = inputs
     err = 0.0
@@ -240,22 +279,28 @@ def hold_and_time(device, card: str, inputs, B: int, m_pad: int, dtype: str,
             dense_out[(dtype, which)] = (x_k, f_k)
         elif (dtype, which) in dense_out:
             x_d, f_d = dense_out[(dtype, which)]
-            check(torch.equal(x_d, x_k) and torch.equal(f_d, f_k),
+            check(torch.equal(bits(x_d), bits(x_k))
+                  and torch.equal(f_d, f_k),
                   f"dense and chunk={chunk} differ in bits at "
                   f"B={B} m_pad={m_pad} {dtype} ({which})")
-    ms = time_launches(
-        lambda: rgb_cuda(L, cc, mv, M=M, tile=tile, chunk=chunk))
+    def launch():
+        return rgb_cuda(L, cc, mv, M=M, tile=tile, chunk=chunk)
+    ms = time_device(launch)
+    call_ms = time_launches(launch)
     bms, by, nbytes, ops = bound_ms(
         B, m_pad, dtype, int(mv.sum()), stats.get("resolve_work", 0))
+    geom = launch_geometry(m_pad, np.dtype(dtype).itemsize, tile)
     entry = {
         "name": "rgb_cuda", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "dtype": dtype, "path": path,
         "shape": [B, 4, m_pad], "tile": tile, "chunk": chunk,
         "launches": 0, "max_abs_err": err,
-        "feasible_mismatches": mismatches, "ms": ms,
+        "feasible_mismatches": mismatches, "ms": ms, "call_ms": call_ms,
         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
         "library_ms": None, "bytes": nbytes, "operations": ops,
-        "resolves": stats.get("resolves", 0), "card": card}
+        "resolves": stats.get("resolves", 0),
+        "warps_per_cta": geom.warps, "smem_bytes": geom.smem_bytes,
+        "staged": geom.staged, "card": card}
     check(mismatches == 0, f"{mismatches} feasibility mismatches: {entry}")
     check(err <= X_TOL[dtype],
           f"x differs from the plain version by {err}: {entry}")

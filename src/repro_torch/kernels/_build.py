@@ -29,7 +29,8 @@ CSRC_DIR = Path(__file__).with_name("csrc")
 
 # No -use_fast_math; --fmad=false so every product and sum rounds on its
 # own, as the plain PyTorch versions' separate ops do — kernel and plain
-# version are then expected to agree to the last bit.
+# version are then expected to agree to the last bit (but for the sign of
+# a zero where +0 and -0 tie in a min or max).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",

@@ -1,4 +1,4 @@
-"""The RGB batch 2-D LP kernel for Hopper: wrapper, plain version, tile pick.
+"""The RGB batch 2-D LP kernel for Hopper: wrapper, plain version, geometry.
 
 ``rgb_cuda`` launches the hand-written CUDA C++ kernel in
 ``csrc/batch_lp.cu`` (built at first use by :mod:`._build`, loaded with
@@ -10,22 +10,35 @@ and keeps its contract: packed constraints ``L (B, 4, m_pad)`` with rows
 ``B % tile == 0``, ``m_pad % LANE == 0``, ``m_pad % chunk == 0``.
 
 What bounds the kernel on an H100: nominally bytes (each constraint is
-read once, ~10 flops per constraint tested), in practice the latency of
-the incremental dependency chain.  The design (one warp per problem, 32
-constraints tested per step by ballot, warp-shuffle min/max for the 1-D
-re-solve) is described at the top of the CUDA source.
+read once, ~10 flops per constraint tested), in practice the incremental
+dependency chain: the re-solves' instructions where many chains run at
+once, one chain's latency where few do (``PERF.md``).  The design,
+described at the top of the CUDA source: one warp per problem, 32
+constraints tested per step by ballot, a re-solve that scans only the
+warp-rounded prefix before the violated constraint, and — where
+a problem's three used rows fit the block's shared memory — each problem
+staged in shared memory by bulk asynchronous copies (the TMA) of its used
+columns only, waited for chunk by chunk.  :func:`launch_geometry` sizes
+the launch from shared memory: warps per CTA, dynamic shared-memory bytes,
+and whether the problem is staged at all (wider problems read global
+memory: the unstaged regime).  The kernel's result does not depend on
+``chunk``, the tile or the regime, and nor does its work on ``chunk``:
+the wrapper validates ``chunk`` only because it is the reference's
+contract and the plain version's parameter.
 
 ``rgb_plain`` is the same function in plain PyTorch ops (closed-form box
-faces like the kernel).  The tests use it, ``chip_smoke.py`` holds the
-kernel against it on the card, and the wrapper takes it for a tensor that
-lies on the CPU — and only then: for a CUDA tensor ``rgb_cuda`` launches
-the kernel or raises.  ``rgb_cuda.launches`` counts kernel launches.
+faces like the kernel; its results equal the kernel's, though where +0
+and -0 tie in a re-solve's min or max a zero's sign may differ).  The
+tests use it, ``chip_smoke.py`` holds the kernel against it on the card,
+and the wrapper takes it for a tensor that lies on the CPU — and only
+then: for a CUDA tensor ``rgb_cuda`` launches the kernel or raises.
+``rgb_cuda.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -33,39 +46,86 @@ from repro_torch.core import oneD
 
 # Constraint counts are padded to a multiple of LANE.  The number is the
 # reference's (its TPU lane width); the port keeps it so identical padded
-# arrays feed both packages and the serving ladder is the same.  The CUDA
-# kernel itself only needs m_pad % chunk == 0.
+# arrays feed both packages and the serving ladder is the same.
 LANE = 128
 
-# Warps in one CTA.  Each warp solves one problem at a time.  ptxas reports
-# 51 registers a thread for the float32 kernel and 74 for float64, so an
-# SM's 65,536 registers hold four 8-warp CTAs in float32 (32 of its 64
-# warp slots) and three in float64: registers, not the CTA size, cap
-# residency, and 8 warps keep the granularity of that cap small while a
-# CTA still amortises its launch over several problems.
+# Most warps in one CTA (the kernel's launch bound).  Each warp solves one
+# problem at a time, so a CTA of this many warps takes a tile of this many
+# problems in one pass.  Wide problems get fewer warps: see
+# ``launch_geometry``.
 WARPS_PER_CTA = 8
 
-# Problems per CTA when nothing says otherwise: one per warp.
+# Problems per CTA when nothing says otherwise: one per warp of a full CTA.
 DEFAULT_TILE = WARPS_PER_CTA
+
+# Dynamic shared memory one block may opt in to on Hopper (H100, H200).
+SMEM_PER_BLOCK = 232_448
+# mbarriers (one completion point per column chunk) in a staging region;
+# each is 8 bytes.  Must equal CHUNKS in csrc/batch_lp.cu.
+CHUNKS = 8
+
+
+class LaunchGeometry(NamedTuple):
+    """How ``rgb_cuda`` launches the kernel for one shape."""
+    warps: int        # warps per CTA
+    smem_bytes: int   # dynamic shared memory per CTA
+    staged: bool      # problems staged in shared memory (else global)
+
+
+def region_bytes(m_pad: int, itemsize: int) -> int:
+    """Shared memory of one staging region: rows 0-2 of one problem at
+    full padded width, and its chunk barriers."""
+    return 3 * m_pad * itemsize + CHUNKS * 8
+
+
+def max_staged_m_pad(itemsize: int) -> int:
+    """The widest ``m_pad`` (a multiple of ``LANE``) whose problem one
+    warp can stage: 19,328 in float32, 9,600 in float64."""
+    return (SMEM_PER_BLOCK - CHUNKS * 8) // (3 * itemsize) // LANE * LANE
+
+
+def launch_geometry(m_pad: int, itemsize: int, tile: int) -> LaunchGeometry:
+    """Warps per CTA, shared-memory bytes and regime for a launch at
+    ``m_pad`` columns of ``itemsize`` bytes and ``tile`` problems per CTA.
+    Pure arithmetic; no card is asked.
+
+    * A problem is staged when one region fits the block's
+      ``SMEM_PER_BLOCK``; otherwise the kernel reads global memory (no
+      shared memory).
+    * Warps: ``min(tile, WARPS_PER_CTA)``, and staged, no more than one
+      region each lets fit in ``SMEM_PER_BLOCK``.  A warp walks its
+      tile's problems one after another in its one region.
+    """
+    if m_pad < 0 or itemsize <= 0 or tile < 1:
+        raise ValueError(
+            f"bad geometry query m_pad={m_pad} itemsize={itemsize} "
+            f"tile={tile}")
+    warps = min(tile, WARPS_PER_CTA)
+    region = region_bytes(m_pad, itemsize)
+    if region > SMEM_PER_BLOCK:
+        return LaunchGeometry(warps, 0, False)
+    warps = min(warps, SMEM_PER_BLOCK // region)
+    return LaunchGeometry(warps, warps * region, True)
 
 
 def _pick_tile(batch: Optional[int] = None) -> int:
     """Problems per CTA for the Hopper kernel.
 
-    The kernel stages nothing in shared memory and keeps one problem's
-    state in a warp's registers, so neither shared memory nor the
-    problems' width or element size limit the tile: only the batch
-    enters.  What the tile does decide:
+    Neither the problems' width nor their element size enters: a CTA's
+    warps walk its tile one problem each at a time, and
+    :func:`launch_geometry` fits the warps (and their staging regions) to
+    the shared memory for whatever tile is asked.  What the tile does
+    decide:
 
-    * a CTA lasts as long as its slowest warp's walk over
+    * a CTA holds its shared memory until its slowest warp is done with
       ``tile / warps`` problems, and the card wants many more CTAs than
       its 132 SMs hold at once to even that out — small tiles win;
     * the batch is padded up to a multiple of the tile with neutral
       problems — small tiles waste fewer rows;
     * below one problem per warp the CTA's other warps idle.
 
-    So: one problem per warp (``DEFAULT_TILE``), clamped to the batch
-    when that is smaller.
+    So: one problem per warp of a full CTA (``DEFAULT_TILE``), clamped to
+    the batch when that is smaller.
     """
     t = DEFAULT_TILE
     if batch is not None:
@@ -232,7 +292,7 @@ def _launcher(dtype: torch.dtype):
     p, i = ctypes.c_void_p, ctypes.c_int
     for name in ("rgb_launch_f32", "rgb_launch_f64"):
         f = getattr(lib, name)
-        f.argtypes = [p, p, p, p, p, i, i, i, i, ctypes.c_double, i, p]
+        f.argtypes = [p, p, p, p, p, i, i, i, ctypes.c_double, i, i, i, p]
         f.restype = ctypes.c_int
     lib.rgb_error_string.argtypes = [ctypes.c_int]
     lib.rgb_error_string.restype = ctypes.c_char_p
@@ -249,24 +309,40 @@ def rgb_cuda(
     *,
     M: float,
     tile: Optional[int] = None,
-    chunk: int = 0,         # 0 = dense re-solve; >0 = chunked O(i) re-solve
+    chunk: int = 0,         # the reference's re-solve width; see below
 ):
     """Launch the RGB kernel: ``(x (B, 2), feas (B, 1) int32)``.
 
     ``B`` must be a multiple of the tile and ``m_pad`` a multiple of
-    ``LANE`` (``solver._solve_kernel`` pads both).  On CUDA tensors the
-    kernel is enqueued on PyTorch's current stream of the tensors'
-    device, without synchronising; a refused launch raises.  On CPU
-    tensors — and only there — the plain version runs instead.
+    ``LANE`` (``solver._solve_kernel`` pads both).  ``chunk`` is validated
+    as the reference validates it and passed to the plain version; the
+    kernel's re-solve always scans the warp-rounded prefix before the
+    violated constraint, which gives the same result as any ``chunk``.
+    On CUDA tensors the kernel is enqueued on PyTorch's current stream of
+    the tensors' device, without synchronising; a refused launch or
+    shared-memory opt-in raises.  On CPU tensors — and only there — the
+    plain version runs instead.
     """
     B, m_pad, T = _check_launch(L, c, m_valid, tile, chunk)
     if L.device.type == "cpu":
         return rgb_plain(L, c, m_valid, M=M, tile=T, chunk=chunk)
+    return _launch(L, c, m_valid, M, T,
+                   launch_geometry(m_pad, L.element_size(), T))
+
+
+def _launch(L, c, m_valid, M: float, tile: int, g: LaunchGeometry):
+    """Enqueue the kernel at geometry ``g`` on checked CUDA tensors.
+    ``rgb_cuda`` passes :func:`launch_geometry`'s pick; measurement
+    scripts and tests may pass the unstaged regime at a shape that would
+    be staged, which gives the same bits."""
+    B, _, m_pad = L.shape
     if L.device.type != "cuda":
         raise ValueError(f"rgb_cuda: unsupported device {L.device}")
     for name, t in (("L", L), ("c", c), ("m_valid", m_valid)):
         if not t.is_contiguous():
             raise ValueError(f"rgb_cuda: {name} must be contiguous")
+    if L.data_ptr() % 16:
+        raise ValueError("rgb_cuda: L must be 16-byte aligned (bulk copies)")
     x = torch.empty((B, 2), dtype=L.dtype, device=L.device)
     feas = torch.empty((B, 1), dtype=torch.int32, device=L.device)
     if B == 0:
@@ -275,13 +351,13 @@ def rgb_cuda(
     with torch.cuda.device(L.device):
         stream = torch.cuda.current_stream(L.device).cuda_stream
         code = fn(L.data_ptr(), c.data_ptr(), m_valid.data_ptr(),
-                  x.data_ptr(), feas.data_ptr(), B, m_pad, T, int(chunk),
-                  float(M), min(T, WARPS_PER_CTA), stream)
+                  x.data_ptr(), feas.data_ptr(), B, m_pad, tile, float(M),
+                  g.warps, int(g.staged), g.smem_bytes, stream)
     if code != 0:
         msg = _bound["error_string"](code).decode(errors="replace")
         raise RuntimeError(
             f"rgb_cuda: launch refused (cuda error {code}: {msg}) for "
-            f"B={B} m_pad={m_pad} tile={T} chunk={chunk} {L.dtype}")
+            f"B={B} m_pad={m_pad} tile={tile} {L.dtype} {g}")
     with _launch_lock:
         rgb_cuda.launches += 1
     return x, feas

@@ -1,5 +1,6 @@
 // RGB batch 2-D LP solver for Hopper (sm_90a): Seidel's randomised
-// incremental algorithm, one warp per problem.
+// incremental algorithm, one warp per problem, each problem staged in shared
+// memory by the Tensor Memory Accelerator.
 //
 // Replaces the TPU kernel src/repro/kernels/batch_lp.py::_rgb_kernel
 // (launched by rgb_pallas).  Same function: packed constraints
@@ -7,53 +8,95 @@
 // counts m_valid (B, 1) int32  ->  x (B, 2), feas (B, 1) int32.
 //
 // What bounds it on this card: bytes, nominally — every constraint is read
-// at least once (3 * m_pad * itemsize per problem) and the arithmetic per
+// once (3 * m_pad * itemsize per problem at most) and the arithmetic per
 // constraint is a handful of multiplies.  In practice the incremental loop
 // is a dependency chain (the test of constraint i needs the optimum after
-// constraint i-1), so a naive port is bound by load latency, not by
-// bandwidth.  What the design does about that:
+// constraint i-1), so what sets the time is the latency of each step of the
+// chain and how many chains the card holds at once.  What the design does:
 //
-//  * One CTA owns `tile` problems and its warps walk them, one warp per
-//    problem at a time, so thousands of independent chains are in flight
-//    and the memory system stays busy.
-//  * The membership test runs 32 constraints at a time: lane l loads
-//    column i0+l (one coalesced read of each of the three rows — row 3 of
-//    L is never touched) and tests it against the current optimum.  The
-//    optimum only changes at a violation, so "first violated lane of the
-//    ballot" is exactly the constraint the sequential algorithm would stop
-//    at; after its re-solve the lanes above it are re-tested against the
-//    new optimum.  The test is warp-uniform, so skipping the re-solve is a
-//    plain branch per problem (the TPU kernel needed a tile-wide
-//    predicate).
-//  * The O(i) re-solve strides the lanes over the prior constraints h < i
-//    (coalesced along the minor axis, served from L1/L2 after the first
-//    pass) and folds t_lo / t_hi with __shfl_xor_sync max/min and the
-//    parallel-infeasible flag with __any_sync — the paper's atomicMin /
-//    atomicMax, contention-free.  The four box faces are applied in closed
-//    form afterwards.
-//  * chunk == 0 scans all m_pad columns under the mask h < i (the dense
-//    re-solve); chunk > 0 scans only ceil(i / chunk) * chunk columns.  The
-//    mask is the same, so both give the same bits.
+//  * One warp per problem.  The membership test runs 32 constraints at a
+//    time: lane l reads column i0+l of rows 0-2 (row 3 of L is never read)
+//    and tests it against the current optimum.  The optimum only changes at
+//    a violation, so the first violated lane of the ballot is exactly the
+//    constraint the sequential algorithm stops at; after its re-solve the
+//    lanes above it are re-tested against the new optimum.  The test is
+//    warp-uniform, so skipping the re-solve is a plain branch per problem.
+//  * The O(i) re-solve at column ii strides the lanes over the columns
+//    h < ceil(ii / 32) * 32 only — the constraints before the violated one,
+//    rounded up to the warp — under the mask h < ii; in the unstaged
+//    regime a lane loads SCAN_BATCH columns (4 in float32, 2 in float64)
+//    before it uses any, so their loads overlap.  The four box faces, in
+//    closed form, are computed by lanes 0-3 (one face a lane: one division
+//    each instead of four on every lane).  t_lo / t_hi are folded with
+//    redux.sync min/max on the values' order-preserving integer image (one
+//    each in float32, two in float64), the parallel-infeasible flag with
+//    __any_sync.  The reductions are exact, so the result is the same in
+//    every bit as a scan of the whole padded row: the reference's `chunk`
+//    (dense, or ceil(ii / chunk) * chunk columns) changes neither the
+//    kernel's result nor its work, and the kernel does not take it.  (Against
+//    the plain version's compare-and-select the sign of a zero can differ
+//    where +0 and -0 tie; -0 == +0.)
+//  * Staged regime (3 * m_pad * itemsize + 64 bytes fits the 232,448 bytes
+//    of dynamic shared memory a block may have): each warp owns one region
+//    of 3 x m_pad elements.  When a warp takes a problem, lane 0 issues 1-D
+//    bulk copies (cp.async.bulk, the TMA's copy of contiguous bytes) of rows
+//    0-2, columns [0, ceil(m_valid / 32) * 32) only — the padding past
+//    m_valid is never copied — split into at most CHUNKS column chunks of at
+//    least MIN_CHUNK columns, each completing on an mbarrier of its own.  A
+//    ballot step waits only for the chunk it is about to test, so the chain
+//    starts when chunk 0 has landed and the problem costs about one memory
+//    latency instead of one per step; the ballot steps and re-solves then
+//    read shared memory (lane l reads column h+l: no bank conflicts for 4- or
+//    8-byte words).  Bulk copies rather than per-lane 16-byte cp.async
+//    because one lane moves a whole row chunk with one instruction and no
+//    registers, and an mbarrier per chunk gives the per-chunk completion
+//    point that cp.async's per-thread groups would need a constant wait
+//    depth for.
+//  * Unstaged regime (a problem too wide for shared memory): the same loop
+//    reads rows 0-2 from global memory (L1/L2), with the same scan limit.
+//  * One CTA per tile; warp w solves problems w, w + warps, ... of its tile,
+//    re-using its one region.  A second region that prefetched the next
+//    problem, and a persistent grid, were measured and were slower at the
+//    figure-3 shape and within 5% elsewhere: with one problem per warp and
+//    ~32 warps an SM, the other warps hide a problem's copy latency
+//    (PERF.md).  Which problem a warp solves never changes its result.
+//
+// Copy hazards handled: m_valid is clamped to [0, m_pad] before the copy
+// size is computed; a problem with m_valid == 0 issues no copy and waits on
+// no barrier; every chunk a problem armed is waited for before the warp
+// leaves the problem (an infeasible problem stops testing early), so no copy
+// is in flight when the region or a barrier is reused or the CTA exits; the
+// phase parity of each barrier is tracked per barrier in a bit mask, flipped
+// when the barrier is armed.  Source rows start m_pad * itemsize apart with
+// m_pad % 128 == 0 and copy sizes are multiples of 32 * itemsize, so the
+// bulk copies' 16-byte alignment holds given a 16-byte aligned L (the
+// wrapper checks it).
 //
 // Numerics: every epsilon and M are cast to T once (a double literal would
 // promote float comparisons and move ties); `big` is the type's finite max,
 // not infinity; division is IEEE.  The library is built without fast-math
 // and with --fmad=false, so each product and sum rounds on its own exactly
-// as the plain PyTorch version's separate ops do.
+// as the plain PyTorch version's separate ops do.  Staging changes where
+// values are read from, never the order of the arithmetic.
 //
-// m_valid is clamped to [0, m_pad] here: checking it on the host would cost
-// a device synchronisation per launch.  (The reference clamps the column
-// index of its dynamic slice instead; for valid inputs both are no-ops.)
+// m_valid is clamped here: checking it on the host would cost a device
+// synchronisation per launch.  (The reference clamps the column index of its
+// dynamic slice instead; for valid inputs both are no-ops.)
 //
-// wgmma, TMA, shared-memory staging and persistent CTAs are not used: the
-// kernel does no matrix product, and staging is left for a later redesign.
+// wgmma is not used: the kernel does no matrix product.
 
 #include <cuda_runtime.h>
+
+#include <atomic>
 #include <cfloat>
+#include <cstdint>
 
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_WARPS = 8;    // block size bound (launch bounds)
+constexpr int CHUNKS = 8;       // completion points per staged problem
+constexpr int MIN_CHUNK = 128;  // columns per chunk, at least
 
 template <typename T> struct Lim;
 template <> struct Lim<float> {
@@ -80,145 +123,412 @@ __device__ __forceinline__ T sign_tb(T v, T tb, T eps_tie) {
   return T(1);
 }
 
+// Warp-wide min of `by_min` and max of `by_max`, in place on every lane,
+// by redux.sync on the values' order-preserving integer image: flipping the
+// magnitude bits of a negative value (b ^ ((b >> 31) & 0x7fffffff), and the
+// 64-bit analogue) orders every non-NaN float or double as a signed
+// integer; no NaN reaches here.  A double's image is reduced in two 32-bit
+// passes: the signed high words, then the unsigned low words of the lanes
+// that hold the winning high word.  Exact, like a compare-and-select
+// butterfly; the two can differ only in the sign of a zero where +0 and -0
+// tie (-0 ranks below +0 here), and -0 == +0.
+__device__ __forceinline__ int f2key(float f) {
+  const int b = __float_as_int(f);
+  return b ^ ((b >> 31) & 0x7fffffff);
+}
+__device__ __forceinline__ float key2f(int k) {
+  return __int_as_float(k ^ ((k >> 31) & 0x7fffffff));
+}
+__device__ __forceinline__ void warp_min_max(float& by_min, float& by_max) {
+  by_min = key2f(__reduce_min_sync(FULL, f2key(by_min)));
+  by_max = key2f(__reduce_max_sync(FULL, f2key(by_max)));
+}
+__device__ __forceinline__ long long d2key(double d) {
+  const long long b = __double_as_longlong(d);
+  return b ^ ((b >> 63) & 0x7fffffffffffffffLL);
+}
+__device__ __forceinline__ double key2d(int hi, unsigned lo) {
+  const long long k =
+      (long long)(((unsigned long long)(unsigned)hi << 32) | lo);
+  return __longlong_as_double(k ^ ((k >> 63) & 0x7fffffffffffffffLL));
+}
+__device__ __forceinline__ void warp_min_max(double& by_min, double& by_max) {
+  const long long kmin = d2key(by_min), kmax = d2key(by_max);
+  const int hmin = __reduce_min_sync(FULL, (int)(kmin >> 32));
+  const int hmax = __reduce_max_sync(FULL, (int)(kmax >> 32));
+  const unsigned lmin = __reduce_min_sync(
+      FULL, (int)(kmin >> 32) == hmin ? (unsigned)kmin : 0xffffffffu);
+  const unsigned lmax = __reduce_max_sync(
+      FULL, (int)(kmax >> 32) == hmax ? (unsigned)kmax : 0u);
+  by_min = key2d(hmin, lmin);
+  by_max = key2d(hmax, lmax);
+}
+
+// --- mbarrier and bulk-copy primitives (PTX) -------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The barriers are named by their shared-memory address (32 bits).
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait until the phase of `bar` with this parity has completed.  A copy of
+// at most 227 KB lands in microseconds; a wait that is still polling after
+// 2^26 polls (seconds) can only be a fault, and traps — the launch then
+// fails with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  uint32_t polls = 0;
+  do {
+    if (++polls > (1u << 26)) __trap();
+    asm volatile(
+        "{\n"
+        " .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Copy `bytes` (a multiple of 16) from global to shared memory; completion
+// is counted on `bar` as transaction bytes.
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
+                                         uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Column chunks of a staged problem with m valid constraints: groups of 32
+// columns, cc32 groups a chunk, n chunks (0 when m == 0).
+struct Chunks {
+  int m32, cc32, n;
+  __device__ __forceinline__ explicit Chunks(int m) {
+    m32 = (m + 31) >> 5;
+    const int want = (m32 + CHUNKS - 1) / CHUNKS;
+    cc32 = want > MIN_CHUNK / 32 ? want : MIN_CHUNK / 32;
+    n = (m32 + cc32 - 1) / cc32;
+  }
+};
+
+__device__ __forceinline__ int clamp_m(int m, int m_pad) {
+  return m < 0 ? 0 : (m > m_pad ? m_pad : m);
+}
+
+// One warp's staging: a region of rows 0-2 (3 x m_pad elements) and CHUNKS
+// barriers, in dynamic shared memory.  Every lane holds the same copy of
+// this state and calls every method (warp-uniformly).
 template <typename T>
-__global__ void rgb_kernel(const T* __restrict__ L, const T* __restrict__ c,
-                           const int* __restrict__ mv, T* __restrict__ x_out,
-                           int* __restrict__ feas_out, int tile, int m_pad,
-                           int chunk, T M) {
+struct Stager {
+  T* rows;        // the region: row r at rows + r * m_pad
+  uint32_t bars;  // shared address of barrier 0; barrier k 8 * k above
+  uint32_t phase; // bit k: parity of barrier k's phase
+
+  __device__ __forceinline__ void init(unsigned char* smem, int warp,
+                                       int nwarps, int m_pad, int lane) {
+    phase = 0u;
+    const int region = 3 * m_pad;
+    rows = reinterpret_cast<T*>(smem) + warp * region;
+    bars = smem_u32(smem + nwarps * region * (int)sizeof(T)) +
+           warp * CHUNKS * 8;
+    if (lane == 0) {
+      for (int k = 0; k < CHUNKS; ++k) mbar_init(bars + 8 * k);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncwarp();
+  }
+
+  // Start the copies of rows 0-2, columns [0, ceil(m / 32) * 32), of the
+  // problem at `src` into the region (lane 0), and flip the parity bits of
+  // the barriers this arms (every lane).  m == 0 arms nothing.
+  __device__ __forceinline__ void issue(const T* src, int m, int m_pad,
+                                        int lane) {
+    const Chunks ch(m);
+    if (ch.n == 0) return;
+    if (lane == 0) {
+      // The region was last read through the generic proxy (the previous
+      // problem's loads, ordered by __syncwarp): order those before the
+      // async proxy's writes.
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      for (int k = 0; k < ch.n; ++k) {
+        const int g0 = k * ch.cc32;
+        const int g1 = min(ch.m32, g0 + ch.cc32);
+        const uint32_t bytes = (uint32_t)((g1 - g0) * 32 * sizeof(T));
+        mbar_expect_tx(bars + 8 * k, 3u * bytes);
+#pragma unroll
+        for (int r = 0; r < 3; ++r)
+          bulk_g2s(rows + r * m_pad + g0 * 32, src + r * m_pad + g0 * 32,
+                   bytes, bars + 8 * k);
+      }
+    }
+    phase ^= (1u << ch.n) - 1u;
+  }
+
+  // Wait for chunk k: the phase armed last.
+  __device__ __forceinline__ void wait(int k) const {
+    mbar_wait(bars + 8 * k, ((phase >> k) & 1u) ^ 1u);
+  }
+};
+
+// Solve one problem with the warp: rows ax/ay/bb (shared memory when
+// STAGED, else global), m valid constraints, objective (cx, cy).  When
+// STAGED, waits for each chunk of `st` before testing it and for every
+// chunk it armed before returning.
+template <typename T, bool STAGED>
+__device__ __forceinline__ void solve_problem(const T* __restrict__ ax, int m,
+                                              int m_pad, T cx, T cy, T M,
+                                              const Stager<T>& st, int lane,
+                                              T& x0_out, T& x1_out,
+                                              bool& feas_out) {
   const T EPS_DENOM = T(1e-7);
   const T EPS_FEAS = T(1e-5);
   const T EPS_TIE = T(1e-9);
   const T big = Lim<T>::big();
+  const T* __restrict__ ay = ax + m_pad;
+  const T* __restrict__ bb = ay + m_pad;
+  // Columns a lane loads before using any in the re-solve's scan: in the
+  // unstaged regime each waits on L2, so several in flight pay off; shared
+  // memory answers in tens of cycles, and the extra registers cost the
+  // staged regime more than the overlap gains (PERF.md).
+  constexpr int SCAN_BATCH = STAGED ? 1 : (sizeof(T) == 4 ? 4 : 2);
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const long long tile0 = (long long)blockIdx.x * tile;
+  const T cpx = -cy, cpy = cx;  // perpendicular (tie-break) objective
+  T x0 = sign_tb(cx, cpx, EPS_TIE) * M;
+  T x1 = sign_tb(cy, cpy, EPS_TIE) * M;
+  bool feas = true;
 
-  for (int p = warp; p < tile; p += nwarps) {
-    const long long bi = tile0 + p;
-    const T* __restrict__ ax = L + bi * 4 * (long long)m_pad;
-    const T* __restrict__ ay = ax + m_pad;
-    const T* __restrict__ bb = ay + m_pad;
+  const Chunks ch(m);
+  int k_ready = 0;  // chunks waited for: columns [0, k_ready * cc32 * 32)
+  for (int i0 = 0; i0 < m && feas; i0 += 32) {
+    if (STAGED && i0 >= k_ready * ch.cc32 * 32) {
+      st.wait(k_ready);
+      ++k_ready;
+    }
+    const int i = i0 + lane;
+    // Lanes past the problem's end hold the neutral constraint.
+    T a_x = T(0), a_y = T(0), b_ = T(1);
+    if (i < m) { a_x = ax[i]; a_y = ay[i]; b_ = bb[i]; }
+    unsigned handled = 0u;  // lanes whose constraint is already settled
+    while (true) {
+      const bool viol = (i < m) && (a_x * x0 + a_y * x1 > b_ + EPS_FEAS);
+      const unsigned ballot = __ballot_sync(FULL, viol) & ~handled;
+      if (ballot == 0u) break;            // warp-uniform skip
+      const int j = __ffs(ballot) - 1;    // first violated constraint
+      const int ii = i0 + j;              // its column
+      const T a_ix = __shfl_sync(FULL, a_x, j);
+      const T a_iy = __shfl_sync(FULL, a_y, j);
+      const T b_i = __shfl_sync(FULL, b_, j);
 
-    const T cx = c[2 * bi], cy = c[2 * bi + 1];
-    const T cpx = -cy, cpy = cx;  // perpendicular (tie-break) objective
-    T x0 = sign_tb(cx, cpx, EPS_TIE) * M;
-    T x1 = sign_tb(cy, cpy, EPS_TIE) * M;
-    bool feas = true;
+      // Line frame: p0 = a_i * b_i (unit normals), u = perp(a_i).
+      const T p0x = a_ix * b_i, p0y = a_iy * b_i;
+      const T ux = -a_iy, uy = a_ix;
 
-    int m = mv[bi];
-    m = m < 0 ? 0 : (m > m_pad ? m_pad : m);
-
-    for (int i0 = 0; i0 < m && feas; i0 += 32) {
-      const int i = i0 + lane;
-      // Lanes past the problem's end hold the neutral constraint.
-      T a_x = T(0), a_y = T(0), b_ = T(1);
-      if (i < m) { a_x = ax[i]; a_y = ay[i]; b_ = bb[i]; }
-      unsigned handled = 0u;  // lanes whose constraint is already settled
-      while (true) {
-        const bool viol = (i < m) && (a_x * x0 + a_y * x1 > b_ + EPS_FEAS);
-        const unsigned ballot = __ballot_sync(FULL, viol) & ~handled;
-        if (ballot == 0u) break;            // warp-uniform skip
-        const int j = __ffs(ballot) - 1;    // first violated constraint
-        const int ii = i0 + j;              // its column
-        const T a_ix = __shfl_sync(FULL, a_x, j);
-        const T a_iy = __shfl_sync(FULL, a_y, j);
-        const T b_i = __shfl_sync(FULL, b_, j);
-
-        // Line frame: p0 = a_i * b_i (unit normals), u = perp(a_i).
-        const T p0x = a_ix * b_i, p0y = a_iy * b_i;
-        const T ux = -a_iy, uy = a_ix;
-
-        // sigma bounds over prior constraints h < ii (paper eqs. 3-4).
-        T t_lo = -big, t_hi = big;
-        bool bad = false;
-        const int limit =
-            chunk > 0 ? ((ii + chunk - 1) / chunk) * chunk : m_pad;
-        for (int h = lane; h < limit; h += 32) {
-          const T axh = ax[h], ayh = ay[h], bh = bb[h];
-          const T denom = axh * ux + ayh * uy;
-          const T num = bh - (axh * p0x + ayh * p0y);
+      T t_lo = -big, t_hi = big;
+      bool bad = false;
+      // The four box faces, one a lane (lanes 0-3), in closed form:
+      // direction (ux, -ux, uy, -uy), slack (M - p0x, M + p0x, M - p0y,
+      // M + p0y).  They join the warp's min/max below like any prior
+      // constraint; min, max and OR are exact, so the order is free.
+      if (lane < 4) {
+        const T bd = lane == 0 ? ux : lane == 1 ? -ux : lane == 2 ? uy : -uy;
+        const T bn = lane == 0   ? M - p0x
+                     : lane == 1 ? M + p0x
+                     : lane == 2 ? M - p0y
+                                 : M + p0y;
+        const T q = bn / bd;  // used only where |bd| > EPS_DENOM
+        if (bd > EPS_DENOM) t_hi = q;
+        if (bd < -EPS_DENOM) t_lo = q;
+        bad = absT(bd) <= EPS_DENOM && bn < -EPS_FEAS;
+      }
+      // sigma bounds over prior constraints h < ii (paper eqs. 3-4),
+      // scanning only the warp-rounded prefix h < ceil(ii / 32) * 32.
+      // The guarded divide's slow-path branch keeps the compiler from
+      // hoisting a column's loads above the previous column's divide, hence
+      // the explicit batch.  `hb < limit` is warp-uniform: limit and h - lane
+      // are multiples of 32.
+      const int limit = (ii + 31) & ~31;
+      for (int h = lane; h < limit; h += 32 * SCAN_BATCH) {
+        T axh[SCAN_BATCH], ayh[SCAN_BATCH], bh[SCAN_BATCH];
+#pragma unroll
+        for (int u = 0; u < SCAN_BATCH; ++u) {
+          const int hb = h + 32 * u;
+          if (hb < limit) { axh[u] = ax[hb]; ayh[u] = ay[hb]; bh[u] = bb[hb]; }
+        }
+#pragma unroll
+        for (int u = 0; u < SCAN_BATCH; ++u) {
+          const int hb = h + 32 * u;
+          if (hb >= limit) break;
+          const T denom = axh[u] * ux + ayh[u] * uy;
+          const T num = bh[u] - (axh[u] * p0x + ayh[u] * p0y);
           const bool is_par = absT(denom) <= EPS_DENOM;
           const T t = num / (is_par ? T(1) : denom);  // guarded divide
-          const bool mask = h < ii;
+          const bool mask = hb < ii;
           if (mask && denom > EPS_DENOM) t_hi = minT(t_hi, t);
           if (mask && denom < -EPS_DENOM) t_lo = maxT(t_lo, t);
           bad = bad || (mask && is_par && num < -EPS_FEAS);
         }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          t_hi = minT(t_hi, __shfl_xor_sync(FULL, t_hi, off));
-          t_lo = maxT(t_lo, __shfl_xor_sync(FULL, t_lo, off));
-        }
-        bad = __any_sync(FULL, bad);
-
-        // The four box faces, in closed form (every lane, uniformly).
-        const T bds[4] = {ux, -ux, uy, -uy};
-        const T bns[4] = {M - p0x, M + p0x, M - p0y, M + p0y};
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const T bd = bds[k], bn = bns[k];
-          if (bd > EPS_DENOM) t_hi = minT(t_hi, bn / bd);
-          if (bd < -EPS_DENOM) t_lo = maxT(t_lo, bn / bd);
-          bad = bad || (absT(bd) <= EPS_DENOM && bn < -EPS_FEAS);
-        }
-        const bool feas_new = (t_lo <= t_hi + EPS_FEAS) && !bad;
-
-        // Objective endpoint selection (tie -> perpendicular objective).
-        const T cu = cx * ux + cy * uy;
-        const T cpu = cpx * ux + cpy * uy;
-        const bool pick_hi = absT(cu) > EPS_TIE ? cu > T(0) : cpu > T(0);
-        const T tt = pick_hi ? t_hi : t_lo;
-        x0 = p0x + tt * ux;
-        x1 = p0y + tt * uy;
-        feas = feas && feas_new;
-        if (!feas) break;  // an infeasible problem is never violated again
-        handled = (j == 31) ? FULL : ((2u << j) - 1u);  // lanes <= j
       }
-    }
+      warp_min_max(t_hi, t_lo);
+      bad = __any_sync(FULL, bad);
+      const bool feas_new = (t_lo <= t_hi + EPS_FEAS) && !bad;
 
+      // Objective endpoint selection (tie -> perpendicular objective).
+      const T cu = cx * ux + cy * uy;
+      const T cpu = cpx * ux + cpy * uy;
+      const bool pick_hi = absT(cu) > EPS_TIE ? cu > T(0) : cpu > T(0);
+      const T tt = pick_hi ? t_hi : t_lo;
+      x0 = p0x + tt * ux;
+      x1 = p0y + tt * uy;
+      feas = feas && feas_new;
+      if (!feas) break;  // an infeasible problem is never violated again
+      handled = (j == 31) ? FULL : ((2u << j) - 1u);  // lanes <= j
+    }
+  }
+  if constexpr (STAGED) {
+    // An infeasible problem stops early: let its remaining copies land
+    // before the region and its barriers are reused.
+    for (; k_ready < ch.n; ++k_ready) st.wait(k_ready);
+    __syncwarp();
+  }
+  x0_out = x0;
+  x1_out = x1;
+  feas_out = feas;
+}
+
+template <typename T, bool STAGED>
+__global__ void __launch_bounds__(MAX_WARPS * 32)
+    rgb_kernel(const T* __restrict__ L, const T* __restrict__ c,
+               const int* __restrict__ mv, T* __restrict__ x_out,
+               int* __restrict__ feas_out, int tile, int m_pad, T M) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+
+  Stager<T> st;  // used (and its barriers initialised) when STAGED only
+  if constexpr (STAGED) st.init(smem, warp, nwarps, m_pad, lane);
+  for (int p = warp; p < tile; p += nwarps) {
+    const int bi = blockIdx.x * tile + p;  // batch < 2^31
+    const T* Lb = L + (long long)bi * 4 * m_pad;
+    const int m = clamp_m(mv[bi], m_pad);
+    const T* ax;
+    if constexpr (STAGED) {
+      st.issue(Lb, m, m_pad, lane);
+      ax = st.rows;
+    } else {
+      ax = Lb;
+    }
+    T x0, x1;
+    bool feas;
+    solve_problem<T, STAGED>(ax, m, m_pad, c[2LL * bi], c[2LL * bi + 1], M,
+                             st, lane, x0, x1, feas);
     if (lane == 0) {
-      x_out[2 * bi] = x0;
-      x_out[2 * bi + 1] = x1;
+      x_out[2LL * bi] = x0;
+      x_out[2LL * bi + 1] = x1;
       feas_out[bi] = feas ? 1 : 0;
     }
   }
 }
 
+// Dynamic shared memory a staged launch needs.
 template <typename T>
-int launch(const void* L, const void* c, const void* mv, void* x, void* feas,
-           int batch, int m_pad, int tile, int chunk, double M, int warps,
-           void* stream) {
-  const dim3 grid((unsigned)(batch / tile));
-  const dim3 block((unsigned)(warps * 32));
-  rgb_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+long long staged_bytes(int warps, int m_pad) {
+  return (long long)warps * (3LL * m_pad * (long long)sizeof(T) +
+                             CHUNKS * (long long)sizeof(uint64_t));
+}
+
+constexpr int MAX_DEVICES = 64;
+
+template <typename T, bool STAGED>
+int launch_t(const void* L, const void* c, const void* mv, void* x,
+             void* feas, int batch, int m_pad, int tile, double M, int warps,
+             int smem_bytes, void* stream) {
+  // Whether this instance has opted in to the block's whole dynamic shared
+  // memory on each device.  The value set is the card's own, the same for
+  // every launch, so host threads racing to set it agree.
+  static std::atomic<bool> opted_in[MAX_DEVICES];
+  auto kern = rgb_kernel<T, STAGED>;
+  cudaError_t err;
+  int dev = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if (smem_bytes > 48 * 1024 &&
+      (dev >= MAX_DEVICES || !opted_in[dev].load(std::memory_order_acquire))) {
+    int optin = 0;
+    if ((err = cudaDeviceGetAttribute(
+             &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+        cudaSuccess)
+      return (int)err;
+    if ((err = cudaFuncSetAttribute(
+             kern, cudaFuncAttributeMaxDynamicSharedMemorySize, optin)) !=
+        cudaSuccess)
+      return (int)err;
+    if (dev < MAX_DEVICES)
+      opted_in[dev].store(true, std::memory_order_release);
+  }
+  kern<<<dim3((unsigned)(batch / tile)), dim3((unsigned)(warps * 32)),
+         (size_t)smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(L), static_cast<const T*>(c),
       static_cast<const int*>(mv), static_cast<T*>(x),
-      static_cast<int*>(feas), tile, m_pad, chunk, static_cast<T>(M));
-  return static_cast<int>(cudaGetLastError());
+      static_cast<int*>(feas), tile, m_pad, static_cast<T>(M));
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const void* L, const void* c, const void* mv, void* x, void* feas,
+           int batch, int m_pad, int tile, double M, int warps, int staged,
+           int smem_bytes, void* stream) {
+  if (batch <= 0 || tile <= 0 || batch % tile || warps < 1 ||
+      warps > MAX_WARPS || smem_bytes < 0)
+    return (int)cudaErrorInvalidValue;
+  if (!staged)
+    return launch_t<T, false>(L, c, mv, x, feas, batch, m_pad, tile, M, warps,
+                              smem_bytes, stream);
+  if (smem_bytes < staged_bytes<T>(warps, m_pad) ||
+      reinterpret_cast<uintptr_t>(L) % 16)
+    return (int)cudaErrorInvalidValue;
+  return launch_t<T, true>(L, c, mv, x, feas, batch, m_pad, tile, M, warps,
+                           smem_bytes, stream);
 }
 
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Each function enqueues one launch
-// on `stream`, does not synchronise, allocates nothing, and returns
-// cudaGetLastError() (0 on success).  `batch` must be a positive multiple of
-// `tile`; `warps` is the CTA's warp count (1..32).
+// on `stream`, does not synchronise, allocates nothing, and returns a CUDA
+// error code (0 on success): that of an argument it refuses, of the shared
+// memory opt-in, or cudaGetLastError() after the launch.  `batch` must be a
+// positive multiple of `tile`; `warps` is the CTA's warp count (1..8);
+// `staged` != 0 selects the staged regime, and then `smem_bytes` must hold
+// warps * (3 * m_pad * itemsize + 64) and L be 16-byte aligned.
 extern "C" int rgb_launch_f32(const void* L, const void* c, const void* mv,
                               void* x, void* feas, int batch, int m_pad,
-                              int tile, int chunk, double M, int warps,
-                              void* stream) {
-  return launch<float>(L, c, mv, x, feas, batch, m_pad, tile, chunk, M, warps,
-                       stream);
+                              int tile, double M, int warps, int staged,
+                              int smem_bytes, void* stream) {
+  return launch<float>(L, c, mv, x, feas, batch, m_pad, tile, M, warps,
+                       staged, smem_bytes, stream);
 }
 
 extern "C" int rgb_launch_f64(const void* L, const void* c, const void* mv,
                               void* x, void* feas, int batch, int m_pad,
-                              int tile, int chunk, double M, int warps,
-                              void* stream) {
-  return launch<double>(L, c, mv, x, feas, batch, m_pad, tile, chunk, M,
-                        warps, stream);
+                              int tile, double M, int warps, int staged,
+                              int smem_bytes, void* stream) {
+  return launch<double>(L, c, mv, x, feas, batch, m_pad, tile, M, warps,
+                        staged, smem_bytes, stream);
 }
 
 extern "C" const char* rgb_error_string(int code) {

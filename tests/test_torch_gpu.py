@@ -9,7 +9,8 @@ Whether there is a card is decided inside the ``card`` fixture, when a test
 runs — never while this module is imported — so every pytest worker collects
 the same tests; without a card each test skips with a reason.  The kernel is
 built with ``--fmad=false`` and IEEE division, and the plain version's eager
-ops never fuse, so the two are expected to agree to the last bit; the stated
+ops never fuse, so the two are expected to be equal (only the sign of a zero
+may differ, where +0 and -0 tie in a re-solve's min or max); the stated
 tolerance (``x`` within 1e-4 in float32, 1e-9 in float64, ``feas`` exactly) is
 what a later, contracted build would be held to.
 """
@@ -21,7 +22,10 @@ from repro_torch.core import (adversarial_lp, concat_batches, infeasible_lp,
                               normalize_packed, pack_call_count, pad_packed,
                               pad_packed_batch_dim, ragged_feasible_lp,
                               random_feasible_lp)
-from repro_torch.kernels.batch_lp import LANE, rgb_cuda, rgb_plain
+from repro_torch.kernels import batch_lp
+from repro_torch.kernels.batch_lp import (LANE, launch_geometry,
+                                          max_staged_m_pad, rgb_cuda,
+                                          rgb_plain)
 from repro_torch.serve_lp import BatchScheduler
 from repro_torch.solver import SolverSpec
 
@@ -69,12 +73,97 @@ def test_kernel_matches_plain(card, dtype, chunk, tile):
     assert int(ok.sum()) == 3 * (L.shape[0] // 4)
 
 
-def test_kernel_tile_and_chunk_invariance_in_bits(card):
-    L, c, mv = _mixed_packed(card, torch.float32, tile=32)
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """The tensor's bit patterns: unlike ``torch.equal``, tells -0 from
+    +0."""
+    return t.view({4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+def _unstaged(L, c, mv, tile):
+    """The kernel in its global-memory regime at a shape it would stage."""
+    g = launch_geometry(L.shape[2], L.element_size(), tile)
+    return batch_lp._launch(L, c, mv, M, tile, g._replace(staged=False,
+                                                          smem_bytes=0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_tile_and_chunk_invariance_in_bits(card, dtype):
+    """Neither the tile, nor chunk, nor the regime moves a bit (a zero's
+    sign included): tiles 32 and 96 make each warp walk several problems
+    through its one staging region; the unstaged regime reads global
+    memory.  Against the plain version the results are equal."""
+    L, c, mv = _mixed_packed(card, dtype, tile=32)
     base = rgb_cuda(L, c, mv, M=M, tile=8, chunk=0)
-    for tile, chunk in ((1, 0), (32, 0), (96, 0), (8, 128), (32, 256)):
-        x, f = rgb_cuda(L, c, mv, M=M, tile=tile, chunk=chunk)
-        assert torch.equal(x, base[0]) and torch.equal(f, base[1])
+    outs = [rgb_cuda(L, c, mv, M=M, tile=tile, chunk=chunk)
+            for tile, chunk in ((1, 0), (32, 0), (96, 0), (8, 128), (32, 256))]
+    outs += [_unstaged(L, c, mv, tile) for tile in (8, 32)]
+    for x, f in outs:
+        assert torch.equal(_bits(x), _bits(base[0]))
+        assert torch.equal(f, base[1])
+    xp, fp = rgb_plain(L, c, mv, M=M, tile=L.shape[0])
+    assert torch.equal(base[1], fp) and torch.equal(base[0], xp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("staged", [True, False])
+def test_kernel_at_the_staging_limit(card, dtype, staged):
+    """The widest m_pad that is staged and the first that is not: equal to
+    the plain version."""
+    it = torch.empty((), dtype=dtype).element_size()
+    m_pad = max_staged_m_pad(it) + (0 if staged else LANE)
+    assert launch_geometry(m_pad, it, 8).staged == staged
+    rng = np.random.default_rng([7, it, m_pad])
+    B = 8
+    theta = rng.uniform(0.0, 2.0 * np.pi, (B, m_pad))
+    L = np.zeros((B, 4, m_pad))
+    L[:, 0], L[:, 1] = np.cos(theta), np.sin(theta)
+    L[:, 2] = (L[:, 0] * rng.uniform(-50, 50, (B, 1)) + L[:, 1]
+               * rng.uniform(-50, 50, (B, 1)) + rng.uniform(0.1, 5.0,
+                                                             (B, m_pad)))
+    phi = rng.uniform(0.0, 2.0 * np.pi, B)
+    c = np.stack([np.cos(phi), np.sin(phi)], -1)
+    mv = np.array([m_pad, m_pad, m_pad - 1, m_pad - 33, 1, 0, 77, m_pad],
+                  np.int32)[:, None]
+    L = torch.tensor(L, dtype=dtype, device=card)
+    c = torch.tensor(c, dtype=dtype, device=card)
+    mv = torch.tensor(mv, device=card)
+    x, f = rgb_cuda(L, c, mv, M=M, tile=8)
+    xp, fp = rgb_plain(L, c, mv, M=M, tile=8)
+    assert torch.equal(f, fp) and torch.equal(x, xp)
+    assert bool(f.all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_ignores_nan_padding(card, dtype):
+    """Columns past m_valid are never copied nor tested: NaN there gives
+    the bits of the neutral padding, staged and unstaged."""
+    L, c, mv = _mixed_packed(card, dtype, tile=32)
+    past = torch.arange(L.shape[2], device=card)[None, :] >= mv
+    Ln = L.clone()
+    Ln[:, :3, :][past[:, None, :].expand(-1, 3, -1)] = float("nan")
+    base = rgb_cuda(L, c, mv, M=M, tile=32)
+    for x, f in (rgb_cuda(Ln, c, mv, M=M, tile=32),
+                 rgb_cuda(Ln, c, mv, M=M, tile=8), _unstaged(Ln, c, mv, 32)):
+        assert torch.equal(_bits(x), _bits(base[0]))
+        assert torch.equal(f, base[1])
+    xp, fp = rgb_plain(Ln, c, mv, M=M, tile=32)
+    assert torch.equal(fp, base[1]) and torch.equal(xp, base[0])
+
+
+def test_kernel_batch_of_pad_problems_only(card):
+    """Problems with m_valid == 0 issue no copy and wait on no barrier:
+    a batch of nothing else finishes, staged and unstaged, and every
+    answer is the box corner of its objective."""
+    B = 64
+    for m_pad in (256, max_staged_m_pad(4) + LANE):
+        L = torch.zeros((B, 4, m_pad), device=card)
+        c = torch.tensor([[1.0, 0.0]] * B, device=card)
+        mv = torch.zeros((B, 1), dtype=torch.int32, device=card)
+        for tile in (8, 32):
+            x, f = rgb_cuda(L, c, mv, M=M, tile=tile)
+            torch.cuda.synchronize()
+            assert bool((f == 1).all())
+            assert torch.equal(x, torch.tensor([[M, M]] * B, device=card))
 
 
 def test_kernel_pad_problems_and_clamped_m_valid(card):
@@ -98,22 +187,31 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(card):
         rgb_cuda(L, c.cpu(), mv, M=M, tile=8)
     with pytest.raises(ValueError, match="not a multiple of tile"):
         rgb_cuda(L, c, mv, M=M, tile=7)
+    skew = torch.empty(L.numel() + 1, dtype=L.dtype, device=card)[1:]
+    skew = skew.view(L.shape).copy_(L)
+    with pytest.raises(ValueError, match="aligned"):
+        rgb_cuda(skew, c, mv, M=M, tile=8)
 
 
 def test_refused_launch_is_reported(card):
-    """A block of 64 warps (2048 threads) is more than any card launches: the
+    """A block of 64 warps (2048 threads) is more than the kernel takes: the
     C entry point returns the error code instead of running nothing
     silently, and the library names it."""
-    from repro_torch.kernels import batch_lp
     fn = batch_lp._launcher(torch.float32)
     L, c, mv = _mixed_packed(card, torch.float32, batch=8, m=16)
     x = torch.empty((8, 2), device=card)
     f = torch.empty((8, 1), dtype=torch.int32, device=card)
+    stream = torch.cuda.current_stream().cuda_stream
     code = fn(L.data_ptr(), c.data_ptr(), mv.data_ptr(), x.data_ptr(),
-              f.data_ptr(), 8, L.shape[2], 8, 0, M, 64,
-              torch.cuda.current_stream().cuda_stream)
+              f.data_ptr(), 8, L.shape[2], 8, M, 64, 1, 1 << 20, stream)
     assert code != 0
     assert batch_lp._bound["error_string"](code)
+    # nor a staged launch given less shared memory than its regions need
+    g = launch_geometry(L.shape[2], 4, 8)
+    code = fn(L.data_ptr(), c.data_ptr(), mv.data_ptr(), x.data_ptr(),
+              f.data_ptr(), 8, L.shape[2], 8, M, g.warps, 1,
+              g.smem_bytes - 8, stream)
+    assert code != 0
     # the card is still usable afterwards
     x2, f2 = rgb_cuda(L, c, mv, M=M, tile=8)
     torch.cuda.synchronize()

@@ -18,8 +18,10 @@ import repro.core as rc
 from repro.kernels import ops as rops
 from repro.kernels.batch_lp import rgb_pallas
 from repro_torch.kernels import ops as tops, ref as tref
-from repro_torch.kernels.batch_lp import (DEFAULT_TILE, LANE, WARPS_PER_CTA,
-                                          _pick_tile, rgb_cuda, rgb_plain)
+from repro_torch.kernels.batch_lp import (DEFAULT_TILE, LANE, SMEM_PER_BLOCK,
+                                          WARPS_PER_CTA, _pick_tile,
+                                          launch_geometry, max_staged_m_pad,
+                                          region_bytes, rgb_cuda, rgb_plain)
 from repro_torch.core import normalize_batch, pack, pad_packed_batch_dim
 from _torch_compat import CPU, OBJ_TOL, X_TOL, to_torch_batch
 
@@ -103,21 +105,46 @@ def test_plain_tile_sizes(tile):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("chunk", [32, 128])
 @pytest.mark.parametrize("kind", ["feasible", "ragged", "adversarial"])
-def test_plain_dense_and_chunked_bit_identical(kind):
+def test_plain_dense_and_chunked_bit_identical(kind, chunk):
+    """``chunk=32`` is the warp-rounded scan the CUDA kernel always does:
+    the re-solve's min/max/OR over h < i are exact, so every scan width
+    gives the dense bits."""
     lp = {"feasible": lambda: rc.random_feasible_lp(jax.random.key(3), 16, 300),
           "ragged": lambda: rc.ragged_feasible_lp(jax.random.key(4), 16, 300),
           "adversarial": lambda: rc.adversarial_lp(8, 200)}[kind]()
     L, c, mv = _reference_inputs(rc.normalize_batch(lp), 8)
     L, c, mv = (torch.from_numpy(np.array(a)) for a in (L, c, mv))
     xd, fd = rgb_plain(L, c, mv, M=M, tile=8, chunk=0)
-    xc, fc = rgb_plain(L, c, mv, M=M, tile=8, chunk=128)
+    xc, fc = rgb_plain(L, c, mv, M=M, tile=8, chunk=chunk)
     assert torch.equal(xd, xc) and torch.equal(fd, fc)
     # ... and the chunked reference kernel agrees too
     xr, fr = rgb_pallas(L.numpy(), c.numpy(), mv.numpy(), M=M, tile=8,
-                        chunk=128, interpret=True)
+                        chunk=chunk, interpret=True)
     np.testing.assert_array_equal(np.asarray(fr), fc.numpy())
     np.testing.assert_allclose(xc.numpy(), np.asarray(xr), **X_TOL)
+
+
+@pytest.mark.parametrize("chunk", [0, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_plain_ignores_what_lies_past_m_valid(dtype, chunk):
+    """The CUDA kernel copies only columns [0, ceil(m_valid / 32) * 32) of
+    a problem: whatever the padding past ``m_valid`` holds (here NaN) must
+    give the bits of the neutral padding."""
+    lp = rc.shuffle_batch(jax.random.key(9), rc.normalize_batch(
+        rc.ragged_feasible_lp(jax.random.key(8), 24, 150)))
+    L, c, mv = (torch.from_numpy(np.array(a))
+                for a in _reference_inputs(lp, 8))
+    L, c = L.to(dtype), c.to(dtype)
+    past = torch.arange(L.shape[2])[None, :] >= mv
+    assert bool(past.any()) and bool((~past).any())
+    Ln = L.clone()
+    Ln[:, :3, :][past[:, None, :].expand(-1, 3, -1)] = float("nan")
+    xa, fa = rgb_plain(L, c, mv, M=M, tile=8, chunk=chunk)
+    xb, fb = rgb_plain(Ln, c, mv, M=M, tile=8, chunk=chunk)
+    assert torch.equal(fa, fb) and torch.equal(xa, xb)
+    assert bool(torch.isfinite(xb).all())
 
 
 @pytest.mark.parametrize("launcher", [rgb_plain, rgb_cuda])
@@ -176,6 +203,8 @@ def test_plain_counts_resolves():
 
 
 def test_pick_tile_for_hopper():
+    # a narrow problem fills a whole CTA, one problem per warp
+    assert DEFAULT_TILE == launch_geometry(LANE, 4, DEFAULT_TILE).warps
     assert DEFAULT_TILE == WARPS_PER_CTA
     assert 1 <= WARPS_PER_CTA <= 32
     assert _pick_tile() == DEFAULT_TILE
@@ -184,6 +213,37 @@ def test_pick_tile_for_hopper():
     assert _pick_tile(3) == 3
     assert _pick_tile(1) == 1
     assert _pick_tile(DEFAULT_TILE + 1) == DEFAULT_TILE
+
+
+@pytest.mark.parametrize("itemsize,limit", [(4, 19_328), (8, 9_600)])
+def test_launch_geometry_fits_shared_memory(itemsize, limit):
+    """Warps x region fit the block's shared memory; the staged regime
+    ends exactly where one warp's region stops fitting; the tile pick is
+    untouched by any of it."""
+    assert max_staged_m_pad(itemsize) == limit
+    assert region_bytes(limit, itemsize) <= SMEM_PER_BLOCK
+    assert region_bytes(limit + LANE, itemsize) > SMEM_PER_BLOCK
+    for m_pad in range(LANE, 2 * limit, LANE):
+        for tile in (1, 3, 8, 32, 96):
+            g = launch_geometry(m_pad, itemsize, tile)
+            assert 1 <= g.warps <= min(tile, WARPS_PER_CTA)
+            assert 0 <= g.smem_bytes <= SMEM_PER_BLOCK
+            assert g.staged == (m_pad <= limit)
+            if g.staged:
+                assert g.smem_bytes == g.warps * region_bytes(m_pad, itemsize)
+                # a warp is dropped only where its region would not fit
+                assert (g.warps == min(tile, WARPS_PER_CTA)
+                        or (g.warps + 1) * region_bytes(m_pad, itemsize)
+                        > SMEM_PER_BLOCK)
+            else:
+                assert g.smem_bytes == 0
+                assert g.warps == min(tile, WARPS_PER_CTA)
+    # the widest staged problem still gets one warp, the next is unstaged
+    assert launch_geometry(limit, itemsize, 8).warps == 1
+    assert not launch_geometry(limit + LANE, itemsize, 8).staged
+    with pytest.raises(ValueError):
+        launch_geometry(256, itemsize, 0)
+    assert _pick_tile(4096) == DEFAULT_TILE and _pick_tile(5) == 5
 
 
 def test_ops_and_ref_match_reference():
