@@ -5,6 +5,7 @@ Run from the root of a checkout, on a machine with one NVIDIA Hopper card
 and ``nvcc``::
 
     python3 scripts/rgb_geometry.py [--out FILE] [--src DIR] [--calls-only]
+    python3 scripts/rgb_geometry.py --table-rows
 
 At the shapes ``chip_smoke.py`` drives (its solver shapes, the serving
 path's widest flush and its smallest, and the unstaged shape) it launches
@@ -17,6 +18,12 @@ path's widest flush and its smallest, and the unstaged shape) it launches
   8 warps, as a shape too wide to stage gets (at a shape that would be
   staged; through the wrapper's private ``_launch``, which takes a
   geometry).
+
+With ``--table-rows`` it times, instead, the shape of every kernel row of
+the bundled tuning table for this card (``m_bucket`` lane-rounded, every
+problem ``m_bucket`` wide, ``batch_bucket`` problems): the row's tile
+(``table``) against the default tile 8 (``grid``), both through
+``rgb_cuda`` at ``chunk`` 0, as a solve at that shape launches them.
 
 With ``--calls-only`` it times only the call every version of the wrapper
 takes (tile 8, ``chunk`` 0 and 128), so ``--src`` can point at the
@@ -61,6 +68,18 @@ def variants(m_pad: int, itemsize: int):
     return out
 
 
+def table_shapes():
+    """``[(B, m, m_pad, dtype, tile), ...]`` of the bundled table's kernel
+    rows for this card."""
+    from repro_torch.kernels.batch_lp import LANE
+    from repro_torch.tune import current_device_kind, default_table
+    kind = current_device_kind()
+    return [(e.key.batch_bucket, e.key.m_bucket,
+             -(-e.key.m_bucket // LANE) * LANE, e.key.dtype, e.tile)
+            for e in default_table().entries()
+            if e.key.backend == "kernel" and e.key.device_kind == kind]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -72,6 +91,9 @@ def main() -> int:
                     help="time only rgb_cuda(L, c, m_valid, M=, tile=8, "
                          "chunk=c) for chunk 0 and 128: the call every "
                          "version of the wrapper takes")
+    ap.add_argument("--table-rows", action="store_true",
+                    help="at each kernel row of the bundled tuning table, "
+                         "the row's tile against tile 8")
     args = ap.parse_args()
     # Before chip_smoke's own entry, which names this checkout's src/.
     sys.path.insert(0, os.path.abspath(args.src))
@@ -84,13 +106,28 @@ def main() -> int:
     card = card_info()
     lines = []
     ok = True
-    for si, (B, m_pad, dtype) in enumerate(SHAPES):
+    if args.table_rows:
+        shapes = table_shapes()
+        if not shapes:
+            print("rgb_geometry: the bundled table has no kernel rows for "
+                  "this card", file=sys.stderr)
+            return 1
+    else:
+        shapes = [(B, m_pad, m_pad, dtype, None)
+                  for B, m_pad, dtype in SHAPES]
+    for si, (B, m, m_pad, dtype, row_tile) in enumerate(shapes):
         rng = np.random.default_rng([cs.SEED, 7, si])
-        A, b, c = cs.feasible_arrays(rng, B, m_pad)
-        L, cc, mv = cs.packed_on(dev, A, b, c, np.full((B,), m_pad, np.int32),
+        A, b, c = cs.feasible_arrays(rng, B, m)
+        L, cc, mv = cs.packed_on(dev, A, b, c, np.full((B,), m, np.int32),
                                  dtype, m_pad)
         base = None
-        if args.calls_only:
+        if args.table_rows:
+            runs = [(name, tile, None, lambda tile=tile:
+                     batch_lp.rgb_cuda(L, cc, mv, M=1.0e4, tile=tile,
+                                       chunk=0))
+                    for name, tile in (("grid", 8), ("table", row_tile))
+                    if name == "grid" or tile != 8]
+        elif args.calls_only:
             runs = [(f"chunk{chunk}", 8, None, lambda chunk=chunk:
                      batch_lp.rgb_cuda(L, cc, mv, M=1.0e4, tile=8,
                                        chunk=chunk))
@@ -109,7 +146,7 @@ def main() -> int:
             ok = ok and same
             ms = cs.time_device(launch)
             call_ms = cs.time_launches(launch)
-            lines.append({"B": B, "m_pad": m_pad, "dtype": dtype,
+            lines.append({"B": B, "m": m, "m_pad": m_pad, "dtype": dtype,
                           "variant": name, "tile": tile,
                           "geometry": g._asdict() if g else None,
                           "src": args.src, "ms": ms, "call_ms": call_ms,

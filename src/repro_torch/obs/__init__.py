@@ -1,27 +1,36 @@
 """repro_torch.obs — dependency-free observability for the serving stack.
 
-The part of the reference's ``repro.obs`` that the serving scheduler
-imports: typed spans and the tracer front door, the flight recorder, and
-the device-profiler annotation hook.  ``trace`` and ``recorder`` are
-stdlib-only and built so the *disabled* path costs nothing but a counter
-bump.
+The reference's ``repro.obs`` for the port: typed spans and the tracer
+front door, the Chrome-trace exporter with the span-chain checker and the
+measured device-idle fraction, the flight recorder, structured logs and
+the device-profiler hooks.  ``trace``, ``export``, ``recorder`` and
+``log`` are stdlib-only and built so the *disabled* path costs nothing
+but a counter bump.
 
 Layers::
 
     trace     TraceContext (128-bit trace id), typed Spans, the
               SpanBuffer ring and the Tracer front door
+    export    Chrome trace_event JSON (Perfetto-loadable), the span
+              chain checker, and the device-idle fraction read from
+              device.solve spans (a lower bound: the spans are host-
+              observed dispatch-to-complete windows)
     recorder  FlightRecorder: ring + scheduler-state snapshots dumped
               to a bounded JSON spool on errors / SLO violations /
               p99-threshold flushes
-    profiler  opt-in NVTX ranges so device traces line up with host spans
+    log       stdlib-logging JSON formatter with trace_id/span_id/
+              tenant/bucket injected from the active context
+    profiler  opt-in NVTX ranges so device traces line up with host
+              spans, and ProfileSession (torch.profiler over a run)
 
-The Chrome-trace export, the span-chain checker, the measured device-idle
-fraction and the JSON log formatter are not ported yet.
-
-The span taxonomy: ``request`` -> ``queue.wait`` -> ``flush.assemble`` ->
+The span taxonomy: ``rpc.handle`` -> ``admit`` -> ``request`` ->
+``queue.wait`` -> ``flush.assemble`` ->
 ``flush.dispatch`` -> ``device.solve`` (one per launch group) ->
 ``flush.scatter``.
 """
+from repro_torch.obs.export import (check_span_chains, device_idle,
+                                    to_chrome_trace)
+from repro_torch.obs.log import JsonFormatter, setup_logging
 from repro_torch.obs.recorder import FlightRecorder
 from repro_torch.obs.trace import (NOOP_TRACER, TRACE_HEADER, Span,
                                    SpanBuffer, TraceContext, Tracer,
@@ -29,7 +38,9 @@ from repro_torch.obs.trace import (NOOP_TRACER, TRACE_HEADER, Span,
                                    parse_trace_header, use_context)
 
 __all__ = [
-    "FlightRecorder", "NOOP_TRACER", "Span", "SpanBuffer", "TRACE_HEADER",
-    "TraceContext", "Tracer", "current_context", "new_trace_context",
-    "parse_trace_header", "use_context",
+    "FlightRecorder", "JsonFormatter", "NOOP_TRACER", "Span",
+    "SpanBuffer", "TRACE_HEADER", "TraceContext", "Tracer",
+    "check_span_chains", "current_context", "device_idle",
+    "new_trace_context", "parse_trace_header", "setup_logging",
+    "to_chrome_trace", "use_context",
 ]

@@ -396,10 +396,6 @@ class BatchScheduler:
                 f"got {[str(d) for d in self._devices]}")
         self._platform = platforms.pop()
         spec = spec.resolve(self._platform)
-        if spec.backend == "pdhg":
-            raise NotImplementedError(
-                "backend='pdhg' is not ported to repro_torch yet "
-                "(ROADMAP.md, queue A, item 'pdhg/')")
         if spec.shuffle:
             # The spec-seeded shuffle permutes the *flushed super-batch*,
             # so a request's constraint order would depend on its row and

@@ -19,9 +19,9 @@ One operation, many LPs, every backend::
 executable-cache key (the serving layer's ``ExecSpec`` embeds one).
 
 The exact Seidel backends (``naive``/``rgb``/``kernel``) answer to
-machine precision at 2-D/small-m.  ``backend="pdhg"`` is a legal spec
-value that is not ported yet (building it raises
-``NotImplementedError``).  ``backend="auto"`` routes each input shape to
+machine precision at 2-D/small-m; ``backend="pdhg"`` (restarted
+first-order) answers to a relative KKT tolerance and is the large-``m``
+contender.  ``backend="auto"`` routes each input shape to
 the fastest *measured* backend when the tuning table has entries, else to
 the CUDA kernel on a card and to ``rgb`` on the CPU.
 

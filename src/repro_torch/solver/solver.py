@@ -54,17 +54,12 @@ from repro_torch.core.packed import (PackedLPBatch, normalize_packed, pack,
 from repro_torch.core.seidel import (solve_naive, solve_naive_packed,
                                      solve_rgb, solve_rgb_packed)
 from repro_torch.device import DeviceLike, as_device
+from repro_torch.pdhg import solve_pdhg, solve_pdhg_packed
 from repro_torch.solver.spec import RGB_DEFAULT_TILE, SolverSpec
 
 AnyLPBatch = Union[LPBatch, PackedLPBatch]
 
 _TORCH_DTYPES = {"float32": torch.float32, "float64": torch.float64}
-
-
-def _pdhg_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "backend='pdhg' is not ported to repro_torch yet (ROADMAP.md, "
-        "queue A, item 'pdhg/'); use 'naive', 'rgb', 'kernel' or 'auto'")
 
 
 def solve_with_spec(spec: SolverSpec, batch: AnyLPBatch,
@@ -81,8 +76,6 @@ def solve_with_spec(spec: SolverSpec, batch: AnyLPBatch,
     m = batch.m_pad if is_packed else batch.m
     device = batch.device
     spec = spec.resolve_for_shape(m, batch.batch, platform=device.type)
-    if spec.backend == "pdhg":
-        raise _pdhg_not_ported()
     dt = _TORCH_DTYPES[spec.dtype]
     if generator is None and spec.shuffle:
         generator = torch.Generator(device=device).manual_seed(spec.seed)
@@ -113,6 +106,11 @@ def _solve_packed(spec: SolverSpec, pb: PackedLPBatch, dt,
         pb = shuffle_packed(generator, pb)
     if spec.backend == "kernel":
         return _solve_kernel(spec, pb)
+    if spec.backend == "pdhg":
+        return solve_pdhg_packed(pb, M=spec.M, tol=spec.tol,
+                                 max_iters=spec.max_iters,
+                                 iter_block=spec.iter_block,
+                                 restart_period=spec.restart_period)
     if spec.backend == "naive":
         return solve_naive_packed(pb, M=spec.M)
     return solve_rgb_packed(pb, M=spec.M,
@@ -121,6 +119,11 @@ def _solve_packed(spec: SolverSpec, pb: PackedLPBatch, dt,
 
 
 def _solve_dense(spec: SolverSpec, batch: LPBatch) -> LPSolution:
+    if spec.backend == "pdhg":
+        return solve_pdhg(batch, M=spec.M, tol=spec.tol,
+                          max_iters=spec.max_iters,
+                          iter_block=spec.iter_block,
+                          restart_period=spec.restart_period)
     if spec.backend == "naive":
         return solve_naive(batch, M=spec.M)
     return solve_rgb(batch, M=spec.M,
@@ -167,8 +170,6 @@ class Solver:
             raise TypeError(f"expected SolverSpec, got {type(spec)!r}")
         self.device = as_device(device)
         self.spec = spec.resolve(self.device.type)
-        if self.spec.backend == "pdhg":
-            raise _pdhg_not_ported()
         # ``backend="auto"`` stays "auto" on the *solving* spec so each
         # input shape can pick the fastest measured backend from the
         # tuning table (``self.spec`` above is the introspection view

@@ -36,6 +36,7 @@ from typing import TYPE_CHECKING, Optional
 import torch
 
 from repro_torch.device import DeviceLike
+from repro_torch.pdhg.solve import DEFAULT_ITER_BLOCK, DEFAULT_RESTART_PERIOD
 
 if TYPE_CHECKING:  # pragma: no cover - import cycle guard, typing only
     from repro_torch.solver.solver import Solver
@@ -57,10 +58,6 @@ PDHG_ONLY_FIELDS = ("iter_block", "restart_period", "tol", "max_iters")
 # solve time (``kernels.batch_lp._pick_tile``).
 RGB_DEFAULT_TILE = 32
 
-# The reference's pdhg schedule defaults (``repro.pdhg``), kept so a pdhg
-# spec shape-resolves to the same fields in both packages.
-PDHG_DEFAULT_ITER_BLOCK = 64
-PDHG_DEFAULT_RESTART_PERIOD = 1024
 
 def default_platform() -> str:
     """``"cuda"`` when a card is visible, else ``"cpu"`` — what
@@ -81,9 +78,8 @@ class SolverSpec:
     backend:
         ``"naive"`` (divergence-emulating baseline), ``"rgb"``
         (plain-PyTorch cooperative tiles), ``"kernel"`` (the CUDA
-        kernel), ``"pdhg"`` (restarted first-order solver — a legal
-        value, but not ported yet: :meth:`build` raises
-        ``NotImplementedError``) or ``"auto"`` (the fastest *measured*
+        kernel), ``"pdhg"`` (restarted first-order solver, plain
+        PyTorch ops) or ``"auto"`` (the fastest *measured*
         backend for the input shape when the tuning table has entries,
         else kernel on ``cuda`` / rgb on ``cpu`` — resolved by
         :meth:`resolve`/:meth:`build` and :meth:`resolve_for_shape`).
@@ -346,9 +342,9 @@ class SolverSpec:
                 if rp is None:
                     rp = entry.chunk
         if ib is None:
-            ib = PDHG_DEFAULT_ITER_BLOCK
+            ib = DEFAULT_ITER_BLOCK
         if rp is None:
-            rp = PDHG_DEFAULT_RESTART_PERIOD
+            rp = DEFAULT_RESTART_PERIOD
         tile = self.tile if self.tile is not None else RGB_DEFAULT_TILE
         chunk = self.chunk if self.chunk is not None else 0
         if (ib == self.iter_block and rp == self.restart_period

@@ -15,9 +15,10 @@ Tables serialise to versioned JSON (:meth:`TuningTable.save` /
 (a new entry wins only when faster by more than the larger of the two
 IQRs, so re-running the tuner can only genuinely improve the table),
 and ship with a bundled default (``default_table.json``).  The port's
-bundled table has **no rows**: nothing has been measured on an NVIDIA
-card by a tuner yet, and no timing taken on another kind of device
-carries over.  Rows written before the stats slice load unchanged —
+bundled table holds rows measured on an NVIDIA H100 by
+``scripts/tune_table.py``, keyed by that card's name; no timing taken on
+another kind of device carries over, so elsewhere every lookup misses.
+Rows written before the stats slice load unchanged —
 ``us_iqr``/``k`` default to ``0.0``/``1`` (no spread recorded).
 
 The process-wide *active table* is what
@@ -34,6 +35,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import tempfile
 import threading
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
@@ -306,6 +308,23 @@ class TuningTable:
     @classmethod
     def load(cls, path) -> "TuningTable":
         return cls.from_json(json.loads(Path(path).read_text()))
+
+
+def check_round_trip(table: TuningTable) -> None:
+    """Raise ``ValueError`` unless ``table`` survives save -> load ->
+    merge unchanged, to the byte of its JSON (the table contract the
+    reference's ``benchmarks/tune_cli.py`` asserts)."""
+    with tempfile.TemporaryDirectory() as td:
+        p1 = table.save(Path(td) / "t1.json")
+        loaded = TuningTable.load(p1)
+        if loaded != table:
+            raise ValueError("save -> load changed the table")
+        merged = TuningTable().merge(loaded).merge(table)
+        if merged != table:
+            raise ValueError("merge is not idempotent")
+        p2 = merged.save(Path(td) / "t2.json")
+        if p2.read_text() != p1.read_text():
+            raise ValueError("round-tripped JSON differs")
 
 
 # -- the process-wide active table ----------------------------------------

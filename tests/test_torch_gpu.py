@@ -1,5 +1,6 @@
 """Checks that need an NVIDIA card: the hand-written CUDA kernel held against
-its plain PyTorch version on the same tensors, and the main path on the card.
+its plain PyTorch version on the same tensors, and the main path on the card
+(solver, scheduler, pdhg, the tuner's fence, one RPC round trip).
 
 Run them on a machine with a Hopper card and ``nvcc``::
 
@@ -280,3 +281,89 @@ def test_scheduler_on_the_card_is_bit_identical_to_direct(card):
         d = solver.solve_one(A, b, c)
         assert r.feasible and bool(d.feasible)
         np.testing.assert_array_equal(d.x.cpu().numpy(), r.x)
+
+
+def test_pdhg_on_the_card_matches_the_cpu(card):
+    """The first-order backend's ops on the card against the same ops on
+    the CPU (float64, a fixed budget of 512 iterations with ``tol=0``):
+    the same iteration and restart counts, ``x`` within 1e-9.  Only the
+    reduction order differs between the two devices."""
+    from repro_torch.pdhg.solve import _solve_rows
+    g = torch.Generator().manual_seed(11)
+    lp = concat_batches([
+        random_feasible_lp(g, 24, 64, dtype=torch.float64, device="cpu"),
+        ragged_feasible_lp(g, 24, 64, dtype=torch.float64, device="cpu"),
+        infeasible_lp(8, 64, dtype=torch.float64, device="cpu")])
+    pb = normalize_packed(lp.pack())
+    kw = dict(M=M, tol=0.0, max_iters=512, iter_block=64,
+              restart_period=256)
+    sols = {}
+    for dev in ("cpu", card):
+        p = pb.to(dev)
+        sols[str(dev)] = _solve_rows(p.ax, p.ay, p.b, p.c, p.m_valid, **kw)
+    (cs, cst), (gs, gst) = sols["cpu"], sols[str(card)]
+    assert gs.x.device == card and gst.iterations.device == card
+    assert torch.equal(gst.iterations.cpu(), cst.iterations)
+    assert torch.equal(gst.restarts.cpu(), cst.restarts)
+    assert torch.equal(gs.feasible.cpu(), cs.feasible)
+    assert float((gs.x.cpu() - cs.x).abs().max()) <= 1e-9
+
+
+def test_measure_stats_fences_the_device(card):
+    """``measure_stats`` times the device's work, not the enqueue: its
+    median of a call that queues ~50 ms of matrix products is at least
+    the device time CUDA events measure for the same call."""
+    from repro_torch.tune import measure_stats
+    a = torch.randn(4096, 4096, device=card)
+
+    def work(t):
+        for _ in range(16):
+            t = t @ a
+        return t
+
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    work(a)
+    torch.cuda.synchronize()
+    start.record()
+    work(a)
+    stop.record()
+    torch.cuda.synchronize()
+    device_s = start.elapsed_time(stop) / 1e3
+    med, iqr, k = measure_stats(work, a, warmup=1, iters=3)
+    assert k == 3 and device_s > 1e-3
+    assert med >= 0.9 * device_s, (med, device_s)
+
+
+def test_rpc_roundtrip_on_the_card_launches_the_kernel(card):
+    """One ``RpcServer`` round trip on the card: the flush launches
+    ``rgb_cuda`` and the answer equals a direct solve in bits."""
+    import http.client
+    import json
+    from repro_torch.serve_lp.rpc import make_frontend, run_in_thread
+    spec = SolverSpec(backend="kernel")
+    f = make_frontend(spec, max_batch=4, max_wait_s=0.003)
+    assert f.scheduler.n_devices >= 1
+    rng = np.random.default_rng(8)
+    theta = rng.uniform(0, 2 * np.pi, 40)
+    A = np.stack([np.cos(theta), np.sin(theta)], -1).astype(np.float32)
+    b = (A @ np.array([3.0, -2.0]) + rng.uniform(0.1, 3.0, 40)).astype(
+        np.float32)
+    c = np.array([0.6, 0.8], np.float32)
+    n0 = rgb_cuda.launches
+    port, stop = run_in_thread(f)
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        conn.request("POST", "/v1/solve", json.dumps(
+            {"A": A.tolist(), "b": b.tolist(), "c": c.tolist()}))
+        resp = conn.getresponse()
+        assert resp.status == 200
+        got = json.loads(resp.read())["result"]
+        conn.close()
+    finally:
+        stop()
+    assert rgb_cuda.launches > n0
+    d = spec.build().solve_one(A, b, c)
+    assert got["feasible"] and bool(d.feasible)
+    np.testing.assert_array_equal(np.asarray(got["x"], np.float32),
+                                  d.x.cpu().numpy())

@@ -152,8 +152,8 @@ def test_scheduler_construction_rules():
         _sched(SolverSpec(backend="rgb", shuffle=True))
     with pytest.raises(ValueError):
         _sched(method="bogus")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _sched(SolverSpec(backend="pdhg"))
+    pd = _sched(SolverSpec(backend="pdhg"))    # ported: a dense ladder
+    assert pd.spec.backend == "pdhg" and pd.bucket_base == 8
     with pytest.raises(ValueError, match="one device type"):
         _sched(spec, devices=[])
     # auto resolves against the devices' platform; the kernel backend on CPU
