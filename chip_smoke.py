@@ -6,10 +6,11 @@ and the CUDA toolkit (``nvcc``)::
 
     python3 chip_smoke.py
 
-It drives the port's main path (``repro_torch`` only) on the card at sizes
+It drives the port's main paths (``repro_torch`` only) on the card at sizes
 users would call real — the paper's figure-3 batch of 16384 problems at the
-README's example width of 256 constraints — and prints one JSON object per
-line:
+README's example width of 256 constraints, and Qwen2-0.5B trained at full
+width with the LP solver inside its optimizer — and prints one JSON object
+per line:
 
 1. ``probe``   PyTorch / CUDA versions, device name and power limit, nvcc.
 2. ``build``   builds ``src/repro_torch/kernels/csrc/batch_lp.cu`` for
@@ -28,7 +29,7 @@ line:
    is done at every shape, tile and chunk the serving and RPC runs really
    launched the kernel with (read from the scheduler's executable cache).
    The ``kernels`` line is printed once, near the end, with the launch
-   counts of phases 4, 5 and 8.
+   counts of phases 4, 5, 8 and 9.
 4. ``solver``  ``SolverSpec(backend="auto").build().solve(...)`` on AoS and
    pre-packed batches: resolved to what the active tuning table names
    (the kernel on a miss), launch count advanced,
@@ -58,6 +59,19 @@ line:
    launched ``rgb_cuda``; the span ring exports a valid Chrome trace
    with complete span chains, and ``device_idle`` is printed.  The
    kernel geometries these flushes used join the ``kernels`` line.
+9. ``train``   ``repro_torch.launch.train.main`` at full width: Qwen2-0.5B
+   in bf16 with ``--lp-clip``, batch 8 x 512 tokens of synthetic data, 20
+   steps checkpointed at step 10 into a temporary directory, then a second
+   run to step 22 that must log ``resumed from step 20``: every loss finite
+   and the last below the first, ``lp_s1`` in [0, 1], one ``rgb_cuda``
+   launch per step; the median step, tokens/s, peak memory, each stage of
+   a step timed apart (forward+backward, the fp32 logits and loss, AdamW,
+   the LP clip, apply) and the step's kernels from a profiler trace.  The
+   LP batch of one real step is held against ``rgb_plain`` bit for bit
+   (a ``kernels`` entry with ``path="train"``), and the smoke config in
+   float32 takes three LP-clipped steps on the card and on the CPU from the
+   same weights, TF32 off: loss and ``lp_s1`` within 1e-4, every leaf
+   within 2e-6 (the CPU parity test's tolerance).
 
 Every input is made from a fixed numpy seed.  Any failed check exits
 non-zero.  The last line is exactly
@@ -69,6 +83,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -91,6 +106,7 @@ X_TOL = {"float32": 1e-4, "float64": 1e-9}
 # cores.  A roofline share is stated against these whatever the power limit.
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+PEAK_BF16_FLOPS = 989e12   # dense bf16 on the tensor cores
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/batch_lp.cu"
 KERNEL_REPLACES = "src/repro/kernels/batch_lp.py:63"
 
@@ -237,6 +253,36 @@ def time_device(fn, n: int = 20) -> float:
     return start.elapsed_time(stop) / n
 
 
+GEMM_NAMES = ("gemm", "nvjet", "cutlass", "xmma")
+
+
+def device_kernels(fn, top: int = 12) -> dict:
+    """What ``fn`` ran on the card, from a ``torch.profiler`` trace: the
+    device ms of all its kernels, of the matrix-multiply ones (cuBLAS /
+    CUTLASS names), and the ``top`` kernels by device time; ``None``s
+    when the profiler recorded no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return {"device_ms": None, "gemm_ms": None, "launches": None,
+                "top": None}
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
+    return {"device_ms": sum(by_name.values()),
+            "gemm_ms": sum(t for n, t in by_name.items()
+                           if any(w in n.lower() for w in GEMM_NAMES)),
+            "launches": len(kernels),
+            "top": sorted(([n[:90], t] for n, t in by_name.items()),
+                          key=lambda x: -x[1])[:top]}
+
+
 def bound_ms(B, m_pad, dtype, mv_sum, resolve_work):
     """Least time the card could take: each input read once and each
     output written once over the memory rate, against the operations these
@@ -265,18 +311,20 @@ def check_inputs(rng, B: int, m_pad: int):
 
 
 def hold_and_time(device, card: str, inputs, B: int, m_pad: int, dtype: str,
-                  tile: int, chunk: int, path: str, dense_out: dict) -> dict:
+                  tile: int, chunk: int, path: str, dense_out: dict,
+                  M: float = 1.0e4) -> dict:
     """One ``kernels`` entry: ``rgb_cuda`` at this shape, tile and chunk
     held against ``rgb_plain`` on both batches of ``inputs`` and timed on
     the second.  ``dense_out`` carries the dense variant's outputs to the
     chunked one of the same inputs and dtype, which must equal them bit
-    for bit."""
+    for bit.  ``bits_equal`` says whether the kernel's ``x`` (where
+    feasible) and flags equal the plain version's bit for bit."""
     from repro_torch.kernels.batch_lp import (launch_geometry, rgb_cuda,
                                               rgb_plain)
-    M = 1.0e4
     mixed, timed = inputs
     err = 0.0
     mismatches = 0
+    bits_equal = True
     stats: dict = {}
     plain_ms = None
     for which, arrays in (("mixed", mixed), ("timed", timed)):
@@ -294,6 +342,8 @@ def hold_and_time(device, card: str, inputs, B: int, m_pad: int, dtype: str,
             plain_ms = (time.perf_counter() - t0) * 1e3
         mismatches += int((f_k != f_p).sum())
         ok = f_p[:, 0] != 0
+        bits_equal = bits_equal and torch.equal(f_k, f_p) and torch.equal(
+            bits(x_k[ok]), bits(x_p[ok]))
         # Where infeasible, x is documented garbage (it is the same
         # garbage in both, but that is not part of the contract).
         err = max(err, float((x_k[ok] - x_p[ok]).abs().max()))
@@ -317,7 +367,8 @@ def hold_and_time(device, card: str, inputs, B: int, m_pad: int, dtype: str,
         "replaces": KERNEL_REPLACES, "dtype": dtype, "path": path,
         "shape": [B, 4, m_pad], "tile": tile, "chunk": chunk,
         "launches": 0, "max_abs_err": err,
-        "feasible_mismatches": mismatches, "ms": ms, "call_ms": call_ms,
+        "feasible_mismatches": mismatches, "bits_equal": bits_equal,
+        "M": M, "ms": ms, "call_ms": call_ms,
         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
         "library_ms": None, "bytes": nbytes, "operations": ops,
         "resolves": stats.get("resolves", 0),
@@ -590,23 +641,6 @@ PDHG_CHECK_TOL = 1e-5
 PDHG_OBJ_RTOL = PDHG_OBJ_ATOL = 1e-3
 
 
-def kernel_events(fn):
-    """``(count, device ms)`` of the CUDA kernels ``fn`` ran, read from a
-    ``torch.profiler`` trace; ``(None, None)`` when the profiler recorded
-    no device activity on this machine."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        return None, None
-    return len(kernels), sum(e.device_time for e in kernels) / 1e3
-
-
 def phase_pdhg(device, card: str) -> dict:
     """The first-order backend through its user entry point at the
     figure-3 shape, held against the kernel on the same problems."""
@@ -692,8 +726,9 @@ def phase_pdhg(device, card: str) -> dict:
         return sorted(ts)[1]
 
     block_ms = (host_s(run(3)) - host_s(run(1))) / 2 * 1e3
-    n1, d1 = kernel_events(run(1))
-    n3, d3 = kernel_events(run(3))
+    k1, k3 = device_kernels(run(1)), device_kernels(run(3))
+    n1, d1 = k1["launches"], k1["device_ms"]
+    n3, d3 = k3["launches"], k3["device_ms"]
     per_block = None if n1 is None or n3 is None else (n3 - n1) / 2
     dev_ms = None if d1 is None or d3 is None else (d3 - d1) / 2
     it = st.iterations.float()
@@ -944,6 +979,276 @@ def phase_rpc(devices, card: str) -> dict:
     return out
 
 
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_BATCH, TRAIN_SEQ = 8, 512
+TRAIN_STEPS, RESUME_STEPS, CKPT_EVERY = 20, 22, 10
+TRAIN_LOG = re.compile(r"\[train\] step\s+(\d+) loss\s+(\S+) dt\s+(\S+)ms "
+                       r"lp_s1 (\S+)")
+# Card against CPU: the tolerance of tests/test_torch_train.py's
+# three-step parity test (float32, TF32 off).
+PARITY_STEPS = 3
+PARITY_LOSS_RTOL = PARITY_S1_TOL = 1e-4
+PARITY_LEAF_ATOL = 2e-6
+
+
+def run_trainer(argv) -> tuple:
+    """``repro_torch.launch.train.main(argv)`` on the card, its log lines
+    captured (this script's stdout carries JSON only): ``(final loss,
+    log text)``."""
+    import contextlib
+    import io
+
+    from repro_torch.launch.train import main as train_main
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        loss = train_main(argv)
+    return loss, buf.getvalue()
+
+
+def drive_train(ckpt_dir: str) -> dict:
+    """The training entry point at full width: 20 steps checkpointed at
+    step 10 (and at the end), then a second run to step 22 resumed from
+    the directory.  Returns what the logs and counters say."""
+    from repro_torch.kernels.batch_lp import rgb_cuda
+    common = ["--arch", TRAIN_ARCH, "--lp-clip", "--batch", str(TRAIN_BATCH),
+              "--seq", str(TRAIN_SEQ), "--log-every", "1",
+              "--ckpt-every", str(CKPT_EVERY), "--ckpt-dir", ckpt_dir]
+    torch.cuda.reset_peak_memory_stats()
+    rgb_cuda.launches = 0
+    t0 = time.perf_counter()
+    _, log1 = run_trainer(common + ["--steps", str(TRAIN_STEPS)])
+    run1_s = time.perf_counter() - t0
+    launches1 = rgb_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    _, log2 = run_trainer(common + ["--steps", str(RESUME_STEPS)])
+    run2_s = time.perf_counter() - t0
+    launches2 = rgb_cuda.launches - launches1
+    rows = [(int(a), float(b), float(c), float(d))
+            for a, b, c, d in TRAIN_LOG.findall(log1 + log2)]
+    steps = [r[0] for r in rows]
+    check(steps == list(range(RESUME_STEPS)),
+          f"the trainer logged steps {steps}, not 0..{RESUME_STEPS - 1}")
+    check(f"[train] resumed from step {TRAIN_STEPS}" in log2,
+          f"the second run did not resume from step {TRAIN_STEPS}: {log2!r}")
+    losses = [r[1] for r in rows]
+    s1s = [r[3] for r in rows]
+    check(all(np.isfinite(losses)), f"a loss is not finite: {losses}")
+    check(losses[-1] < losses[0],
+          f"the last loss {losses[-1]} is not below the first {losses[0]}")
+    check(all(0.0 <= x <= 1.0 for x in s1s), f"lp_s1 outside [0, 1]: {s1s}")
+    check(launches1 == TRAIN_STEPS and
+          launches2 == RESUME_STEPS - TRAIN_STEPS,
+          f"rgb_cuda launched {launches1} + {launches2} times in "
+          f"{TRAIN_STEPS} + {RESUME_STEPS - TRAIN_STEPS} steps")
+    dts = sorted(r[2] for r in rows[:TRAIN_STEPS])
+    median_ms = dts[len(dts) // 2]
+    return {"steps": RESUME_STEPS, "losses": losses, "lp_s1": s1s,
+            "step_ms": [r[2] for r in rows], "median_step_ms": median_ms,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (median_ms / 1e3),
+            "max_memory_allocated": peak, "run_seconds": [run1_s, run2_s],
+            "launches": launches1 + launches2}
+
+
+def train_matmul_flops(cfg, lay, B: int, S: int) -> float:
+    """The matrix-multiply FLOPs of one training step of the dense LM at
+    ``B x S`` tokens: projections, MLP and head forward (2 per MAC),
+    backward (twice the forward), the blocks' forward again under remat,
+    and the attention score and value products."""
+    d, hd, f, Lr = cfg.d_model, cfg.hd, cfg.d_ff, cfg.n_layers
+    v_pad = -(-cfg.vocab // 256) * 256
+    block = d * (lay.h_pad + 2 * lay.kv_total) * hd + lay.h_pad * hd * d \
+        + 3 * d * f                                  # MACs per token
+    attn = 2 * S * lay.h_pad * hd                    # MACs per token
+    n = B * S
+    fwd_blocks = 2 * n * Lr * (block + attn)
+    fwd_head = 2 * n * v_pad * d
+    remat = 2 if cfg.remat else 1
+    return 3 * (fwd_blocks + fwd_head) + (remat - 1) * fwd_blocks
+
+
+def split_step(device) -> tuple:
+    """Where a full-width step's time goes: each stage of the step timed
+    apart (CUDA events) on the same state, the GEMMs' share of the
+    forward+backward from a profiler trace; and the LP batch this step's
+    ``lp_constrain_updates`` solved."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.pipeline import TokenSource, for_model
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import layers as L
+    from repro_torch.optim import (AdamW, apply_updates,
+                                   lp_constrain_updates, lp_problems,
+                                   sync_duplicated_grads)
+    from repro_torch.tree import copy_into_, tree_leaves, tree_unflatten
+
+    cfg = ARCHS[TRAIN_ARCH]
+    opt = AdamW()
+    prog = make_train_step(cfg, make_host_mesh(1, 1), opt,
+                           global_batch=TRAIN_BATCH, lp_clip=True)
+    model = prog.model
+    params = model.init(torch.Generator(device=device).manual_seed(1))
+    state = opt.init(params)
+    src = TokenSource(for_model(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=1))
+    batch = {k: torch.as_tensor(v, device=device)
+             for k, v in src.global_batch(0).items()}
+    leaves = tree_leaves(params)
+    # one real step first, so the momenta are not zero
+    params, state, _, _ = prog.step(params, state, batch, {})
+
+    def fwd_bwd():
+        with torch.enable_grad():
+            loss, _ = model.loss(params, batch)
+            return tree_unflatten(params, torch.autograd.grad(loss, leaves))
+
+    grads = fwd_bwd()
+    dup = model.kv_duplication()
+    grads = sync_duplicated_grads(grads, dup, cfg.hd)
+    updates, new_state = opt.update(grads, state, params)
+    A, b, c = lp_problems(updates, grads, new_state.m, params)
+    lp_batch = (A.cpu().numpy(), b.cpu().numpy(), c.cpu().numpy())
+    h = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model), device=device,
+                    dtype=torch.bfloat16, requires_grad=True)
+
+    def head():
+        with torch.enable_grad():
+            loss, _ = L.lm_head_loss(h, params["lm_head"], batch["labels"],
+                                     model.mi, vocab_real=cfg.vocab)
+            torch.autograd.grad(loss, [h, params["lm_head"]])
+
+    def ms(fn, n=5):
+        return time_launches(fn, n_warm=1, n=n)
+
+    out = {
+        "fwd_bwd_ms": ms(fwd_bwd, 3),
+        "lm_head_loss_fwd_bwd_ms": ms(head),
+        "sync_duplicated_grads_ms": ms(
+            lambda: sync_duplicated_grads(grads, dup, cfg.hd)),
+        "adamw_ms": ms(lambda: opt.update(grads, state, params)),
+        "lp_clip_ms": ms(lambda: lp_constrain_updates(
+            updates, grads, new_state.m, params)),
+        # stage 5 as the step runs it (each call moves the weights on)
+        "apply_ms": ms(lambda: copy_into_(
+            params, apply_updates(params, updates))),
+        "step_ms": ms(lambda: prog.step(params, state, batch, {}), 3),
+    }
+    flops = train_matmul_flops(cfg, model.lay, TRAIN_BATCH, TRAIN_SEQ)
+    out["matmul_flops"] = flops
+    out["matmul_bound_ms"] = flops / PEAK_BF16_FLOPS * 1e3
+    out["step_kernels"] = device_kernels(
+        lambda: prog.step(params, state, batch, {}))
+    return out, lp_batch
+
+
+def card_vs_cpu(device) -> dict:
+    """The smoke config in float32, three steps with the LP clip on the
+    card and on the CPU from the same parameters (carried across as
+    numpy), TF32 off: loss, lp_s1 and every leaf agree."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.data.pipeline import TokenSource, for_model
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import params_from_numpy, params_to_numpy
+    from repro_torch.optim import AdamW
+
+    cfg = dataclasses.replace(smoke_config(ARCHS[TRAIN_ARCH]),
+                              dtype="float32")
+    init = None
+    runs = {}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in (torch.device("cpu"), device):
+            opt = AdamW()
+            prog = make_train_step(cfg, make_host_mesh(1, 1, device=dev),
+                                   opt, global_batch=2, lp_clip=True)
+            if init is None:
+                init = params_to_numpy(prog.model.init(
+                    torch.Generator().manual_seed(3)))
+            params = params_from_numpy(prog.model, init)
+            state = opt.init(params)
+            src = TokenSource(for_model(cfg, 32, 2, seed=3))
+            out = []
+            for st in range(PARITY_STEPS):
+                batch = {k: torch.as_tensor(v, device=dev)
+                         for k, v in src.global_batch(st).items()}
+                params, state, m, _ = prog.step(params, state, batch, {})
+                out.append((float(m["loss"]), float(m["lp_s1"])))
+            runs[dev.type] = (out, params_to_numpy(params))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    from repro_torch.tree import flatten_with_paths
+    (cpu, pc), (gpu, pg) = runs["cpu"], runs["cuda"]
+    loss_rel = max(abs(a[0] - b[0]) / abs(a[0]) for a, b in zip(cpu, gpu))
+    s1_err = max(abs(a[1] - b[1]) for a, b in zip(cpu, gpu))
+    fc, fg = flatten_with_paths(pc), flatten_with_paths(pg)
+    leaf_err = max(float(np.abs(fc[k] - fg[k]).max()) for k in fc)
+    check(loss_rel <= PARITY_LOSS_RTOL,
+          f"card and CPU losses differ by {loss_rel} relative: {cpu} {gpu}")
+    check(s1_err <= PARITY_S1_TOL, f"lp_s1 differs by {s1_err}")
+    check(leaf_err <= PARITY_LEAF_ATOL,
+          f"a parameter leaf differs by {leaf_err} after {PARITY_STEPS} "
+          "steps")
+    return {"steps": PARITY_STEPS, "cpu": cpu, "card": gpu,
+            "max_loss_rel": loss_rel, "max_lp_s1_err": s1_err,
+            "max_leaf_abs_err": leaf_err, "tf32": False}
+
+
+def phase_train(device, card: str) -> dict:
+    """The training entry point at full width with the LP clip, read
+    right after its run; then the step's time split and card-vs-CPU
+    parity.  Returns the phase line and the step's LP batch."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        drive = drive_train(d)
+    split, lp_batch = split_step(device)
+    parity = card_vs_cpu(device)
+    out = {"phase": "train", "arch": TRAIN_ARCH, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "dtype": "bfloat16", **drive,
+           "split": split,
+           "lp_clip_share": split["lp_clip_ms"] / drive["median_step_ms"],
+           "card_vs_cpu": parity,
+           "seconds": time.perf_counter() - t0, "card": card}
+    emit(out)
+    return out, lp_batch
+
+
+def phase_train_kernel(device, card: str, lp_batch, launches: int) -> dict:
+    """``rgb_cuda`` on the LP batch of one real training step, padded as
+    the solver pads it (m to a lane, the batch to the tile with neutral
+    problems), held against ``rgb_plain`` bit for bit and timed."""
+    from repro_torch.kernels.batch_lp import LANE
+    from repro_torch.optim.lp_clip import M_BOX
+    from repro_torch.solver import SolverSpec
+    A, b, c = lp_batch
+    nb, m = b.shape
+    tile = SolverSpec(backend="kernel", M=M_BOX).resolve_for_shape(
+        m, nb, platform="cuda").tile
+    B = -(-nb // tile) * tile
+    pad = B - nb
+    A = np.concatenate([A, np.zeros((pad, m, 2), A.dtype)])
+    b = np.concatenate([b, np.ones((pad, m), b.dtype)])
+    c = np.concatenate([c, np.tile(np.array([[1.0, 0.0]], c.dtype),
+                                   (pad, 1))])
+    mv = np.concatenate([np.full(nb, m, np.int32), np.zeros(pad, np.int32)])
+    arrays = (A, b, c, mv)
+    entry = hold_and_time(device, card, (arrays, arrays), B, LANE,
+                          "float32", tile, 0, "train", {}, M=M_BOX)
+    check(entry["bits_equal"],
+          f"rgb_cuda differs from rgb_plain in bits on the step's LP "
+          f"batch: {entry}")
+    entry["launches"] = launches
+    entry["problems"] = nb
+    return entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script "
@@ -969,8 +1274,11 @@ def main() -> int:
         phase_pdhg(device, card)
         phase_tune(device, card)
         rpc = phase_rpc(default_devices()[:1], card)
+        train, lp_batch = phase_train(device, card)
         # Launches made from here on compare and time; the counts of the
         # main path have been read.
+        entries.append(phase_train_kernel(device, card, lp_batch,
+                                          train["launches"]))
         entries += phase_serve_kernels(device, card, serve["exec_specs"])
         entries += phase_serve_kernels(device, card, rpc["exec_specs"],
                                        path="rpc")
@@ -980,6 +1288,8 @@ def main() -> int:
                   f"{e['dtype']} chunk={e['chunk']} {e['shape']}")
         check(serve["launches"] > 0, "the serving path launched no kernel")
         check(rpc["launches"] > 0, "the RPC path launched no kernel")
+        check(train["launches"] == RESUME_STEPS,
+              "the training path did not launch the kernel once a step")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,0 +1,17 @@
+"""OLMoE-1B-7B [arXiv:2409.02060; hf]: 16L d2048 16H (GQA kv=16) MoE 64
+experts top-8, expert d_ff=1024, vocab 50304."""
+from repro_torch.models.common import ModelConfig
+
+CONFIG = ModelConfig(
+    name="olmoe-1b-7b",
+    family="moe",
+    n_layers=16,
+    d_model=2048,
+    n_heads=16,
+    n_kv=16,
+    d_ff=1024,
+    vocab=50304,
+    n_experts=64,
+    top_k=8,
+    fsdp=True,
+)

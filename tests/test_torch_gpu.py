@@ -1,6 +1,8 @@
 """Checks that need an NVIDIA card: the hand-written CUDA kernel held against
-its plain PyTorch version on the same tensors, and the main path on the card
-(solver, scheduler, pdhg, the tuner's fence, one RPC round trip).
+its plain PyTorch version on the same tensors, and the main paths on the card
+(solver, scheduler, pdhg, the tuner's fence, one RPC round trip, a full-width
+LP-clipped training step, train steps card against CPU, a bf16 checkpoint
+round trip).
 
 Run them on a machine with a Hopper card and ``nvcc``::
 
@@ -367,3 +369,102 @@ def test_rpc_roundtrip_on_the_card_launches_the_kernel(card):
     assert got["feasible"] and bool(d.feasible)
     np.testing.assert_array_equal(np.asarray(got["x"], np.float32),
                                   d.x.cpu().numpy())
+
+
+def test_full_width_qwen2_step_with_lp_clip_launches_the_kernel_once(card):
+    """One full-width Qwen2-0.5B step (bf16, a short batch) with the LP
+    trust-region clip: one ``rgb_cuda`` launch, a finite loss, ``lp_s1``
+    in [0, 1], and the weights moved."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamW
+    cfg = ARCHS["qwen2-0.5b"]
+    opt = AdamW()
+    prog = make_train_step(cfg, make_host_mesh(1, 1), opt, global_batch=2,
+                           lp_clip=True)
+    params = prog.model.init(torch.Generator(device=card).manual_seed(0))
+    state = opt.init(params)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab, (2, 128)),
+                                device=card) for k in ("tokens", "labels")}
+    before = params["blocks"]["w_up"][0, 0, :8].clone()
+    n0 = rgb_cuda.launches
+    params, state, m, _ = prog.step(params, state, batch, {})
+    torch.cuda.synchronize()
+    assert rgb_cuda.launches == n0 + 1
+    assert np.isfinite(float(m["loss"])) and 0.0 <= float(m["lp_s1"]) <= 1.0
+    assert int(state.step) == 1
+    assert not torch.equal(before, params["blocks"]["w_up"][0, 0, :8])
+
+
+def test_train_steps_on_the_card_match_the_cpu(card):
+    """The smoke config in float32, three LP-clipped steps on the card and
+    on the CPU from the same weights, TF32 off: the tolerance of
+    tests/test_torch_train.py's three-step parity test."""
+    import dataclasses
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.data.pipeline import TokenSource, for_model
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import params_from_numpy, params_to_numpy
+    from repro_torch.optim import AdamW
+    from repro_torch.tree import flatten_with_paths
+    cfg = dataclasses.replace(smoke_config(ARCHS["qwen2-0.5b"]),
+                              dtype="float32")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs, init = {}, None
+    try:
+        for dev in (torch.device("cpu"), card):
+            opt = AdamW()
+            prog = make_train_step(cfg, make_host_mesh(1, 1, device=dev),
+                                   opt, global_batch=2, lp_clip=True)
+            if init is None:
+                init = params_to_numpy(prog.model.init(
+                    torch.Generator().manual_seed(1)))
+            params = params_from_numpy(prog.model, init)
+            state = opt.init(params)
+            src = TokenSource(for_model(cfg, 32, 2, seed=1))
+            metrics = []
+            for s in range(3):
+                batch = {k: torch.as_tensor(v, device=dev)
+                         for k, v in src.global_batch(s).items()}
+                params, state, m, _ = prog.step(params, state, batch, {})
+                metrics.append((float(m["loss"]), float(m["lp_s1"])))
+            runs[dev.type] = (metrics, flatten_with_paths(
+                params_to_numpy(params)))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (mc, pc), (mg, pg) = runs["cpu"], runs["cuda"]
+    for (lc, sc), (lg, sg) in zip(mc, mg):
+        np.testing.assert_allclose(lg, lc, rtol=1e-4)
+        np.testing.assert_allclose(sg, sc, rtol=1e-4, atol=1e-4)
+    for k in pc:
+        np.testing.assert_allclose(pg[k], pc[k], rtol=0, atol=2e-6,
+                                   err_msg=k)
+
+
+def test_bf16_checkpoint_round_trip_on_the_card(card, tmp_path):
+    """bfloat16 weights and the fp32 AdamW state saved from the card come
+    back onto the card with the same bits and dtypes."""
+    from repro_torch.ckpt.checkpoint import Checkpointer
+    from repro_torch.optim import AdamW
+    g = torch.Generator(device=card).manual_seed(0)
+    params = {"w": torch.randn((64, 32), generator=g, device=card
+                               ).to(torch.bfloat16),
+              "blocks": {"b": torch.randn((7,), generator=g, device=card)}}
+    opt = AdamW()
+    state = opt.init(params)
+    _, state = opt.update(params, state, params)
+    ck = Checkpointer(tmp_path)
+    ck.save(1, (params, state), extra={"next_step": 1})
+    ck.wait()
+    (p, st), extra = ck.load((params, state))
+    assert extra == {"next_step": 1}
+    for a, b in ((p["w"], params["w"]), (p["blocks"]["b"],
+                                         params["blocks"]["b"]),
+                 (st.m["w"], state.m["w"]), (st.v["w"], state.v["w"]),
+                 (st.step, state.step)):
+        assert b.device.type == "cuda" and a.device == b.device
+        assert a.dtype == b.dtype and torch.equal(a, b)
