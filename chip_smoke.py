@@ -8,9 +8,9 @@ and the CUDA toolkit (``nvcc``)::
 
 It drives the port's main paths (``repro_torch`` only) on the card at sizes
 users would call real — the paper's figure-3 batch of 16384 problems at the
-README's example width of 256 constraints, and Qwen2-0.5B trained at full
-width with the LP solver inside its optimizer — and prints one JSON object
-per line:
+README's example width of 256 constraints, Qwen2-0.5B trained at full
+width with the LP solver inside its optimizer, and four language models
+served at full width — and prints one JSON object per line:
 
 1. ``probe``   PyTorch / CUDA versions, device name and power limit, nvcc.
 2. ``build``   builds ``src/repro_torch/kernels/csrc/batch_lp.cu`` for
@@ -29,7 +29,7 @@ per line:
    is done at every shape, tile and chunk the serving and RPC runs really
    launched the kernel with (read from the scheduler's executable cache).
    The ``kernels`` line is printed once, near the end, with the launch
-   counts of phases 4, 5, 8 and 9.
+   counts of phases 4, 5, 8 and 9 (phase 10 launches none).
 4. ``solver``  ``SolverSpec(backend="auto").build().solve(...)`` on AoS and
    pre-packed batches: resolved to what the active tuning table names
    (the kernel on a miss), launch count advanced,
@@ -72,6 +72,21 @@ per line:
    float32 takes three LP-clipped steps on the card and on the CPU from the
    same weights, TF32 off: loss and ``lp_s1`` within 1e-4, every leaf
    within 2e-6 (the CPU parity test's tolerance).
+10. ``lm_serve`` one line per architecture with attention served at full
+   width (qwen2-0.5b, olmoe-1b-7b, paligemma-3b, whisper-base):
+   (a) ``repro_torch.launch.serve.main`` in bf16, 16 requests in batches
+   of 8, prompts of 512 tokens (paligemma-3b: 256 after its 256 patches),
+   32 tokens generated each: every token in the vocabulary, the cache's
+   bytes as its shape says; prefill ms and the decode steps' ms (CUDA
+   events), tokens/s (host clock), peak memory, the KV cache's bytes
+   beside what the real KV heads would need, and one decode step's
+   kernels from a profiler trace; (b) the same model in float32 (TF32
+   off): 64 tokens prefilled, 4 teacher-forced decode steps, each step's
+   logits within rtol = atol = 2e-4 of a prefill of the longer sequence;
+   (c) the smoke config in float32, one prefill and 3 decode steps on the
+   card and on the CPU from the same weights: logits within 1e-5 of the
+   largest |logit|.  No LP is solved on this path: ``rgb_cuda`` is
+   launched 0 times, and each line says so.
 
 Every input is made from a fixed numpy seed.  Any failed check exits
 non-zero.  The last line is exactly
@@ -1220,6 +1235,278 @@ def phase_train(device, card: str) -> dict:
     return out, lp_batch
 
 
+# The serving phase: each architecture served at full width, then held
+# to the prefill oracle (full width, float32) and to the CPU (smoke).
+LM_ARCHS = (("qwen2-0.5b", 512), ("olmoe-1b-7b", 512),
+            ("paligemma-3b", 256), ("whisper-base", 512))
+LM_REQUESTS, LM_BATCH, LM_GEN = 16, 8, 32
+# tests/test_decode_equivalence.py's form: prefill, stream teacher-forced
+# steps, hold each step's logits against a prefill of the longer sequence
+EQ_BATCH, EQ_PREFILL, EQ_STEPS, EQ_TOL = 2, 64, 4, 2e-4
+LM_CPU_STEPS, LM_CPU_TOL = 3, 1e-5
+
+
+def free_card() -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def float32_exact():
+    """TF32 off (for float32 checks); returns a function that restores
+    the old setting."""
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def restore():
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = old
+    return restore
+
+
+def lm_inputs(cfg, rng, B: int, S: int, device):
+    """Tokens (B, S) and a function giving the batch of the first ``t``
+    tokens on ``device``, with the family's patches or frames (drawn in
+    float32, cast to the model's dtype)."""
+    toks = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+    extra = {}
+    act = getattr(torch, cfg.dtype)
+    if cfg.family == "vlm":
+        extra["patches"] = rng.standard_normal(
+            (B, cfg.n_prefix, cfg.d_model)).astype(np.float32)
+    if cfg.family == "encdec":
+        extra["frames"] = rng.standard_normal(
+            (B, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+
+    def batch(t: int) -> dict:
+        b = {"tokens": torch.as_tensor(toks[:, :t], device=device)}
+        for k, v in extra.items():
+            b[k] = torch.as_tensor(v, device=device).to(act)
+        return b
+    return toks, batch
+
+
+def real_err(got, ref, vocab: int) -> tuple:
+    """Largest |got - ref| over the real vocabulary, the largest |ref|
+    there, and whether the padded columns are equal."""
+    g, r = got.float().cpu().numpy(), ref.float().cpu().numpy()
+    return (float(np.abs(g[:, :vocab] - r[:, :vocab]).max()),
+            float(np.abs(r[:, :vocab]).max()),
+            bool(np.array_equal(g[:, vocab:], r[:, vocab:])))
+
+
+def serve_arch(device, card: str, arch: str, prompt_len: int) -> dict:
+    """(a) ``repro_torch.launch.serve.main`` at full width in bf16, read
+    right after its run; then one decode step of a fresh server of the
+    same shape in a profiler trace."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.launch.serve import pad_cache
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.common import head_layout
+    cfg = ARCHS[arch]
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["--arch", arch, "--requests", str(LM_REQUESTS), "--batch",
+            str(LM_BATCH), "--prompt-len", str(prompt_len), "--gen",
+            str(LM_GEN)]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        run = serve_main(argv)
+    peak = torch.cuda.max_memory_allocated()
+    log = buf.getvalue()
+    n_batches = -(-LM_REQUESTS // LM_BATCH)
+    check(f"[serve] {n_batches * LM_BATCH * LM_GEN} tokens in " in log,
+          f"{arch}: the server's last line is not there: {log!r}")
+    check([t.shape for t in run.tokens] == [(LM_BATCH, LM_GEN)] * n_batches,
+          f"{arch}: generated {[t.shape for t in run.tokens]}")
+    check(all(((t >= 0) & (t < cfg.vocab)).all() for t in run.tokens),
+          f"{arch}: a generated token is outside the real vocabulary")
+    decode_ms = sorted(ms for b in run.decode_ms for ms in b)
+    lay = head_layout(cfg, 1)
+    seq = prompt_len + LM_GEN + (cfg.n_prefix if cfg.family == "vlm" else 0)
+    per_slot = 2 * cfg.n_layers * LM_BATCH * cfg.hd * 2     # k and v, bf16
+    kv_bytes = per_slot * seq * lay.kv_total
+    if cfg.family == "encdec":
+        kv_bytes += per_slot * cfg.enc_seq * lay.kv_total
+    check(run.cache_bytes == kv_bytes + cfg.n_layers * LM_BATCH * 4,
+          f"{arch}: the cache holds {run.cache_bytes} bytes, not "
+          f"{kv_bytes} of K/V and the positions")
+    out = {"arch": arch, "family": cfg.family, "batch": LM_BATCH,
+           "prompt_len": prompt_len, "gen": LM_GEN,
+           "requests": LM_REQUESTS, "dtype": cfg.dtype,
+           "prefill_ms": run.prefill_ms,
+           "decode_step_ms_median": decode_ms[len(decode_ms) // 2],
+           "decode_step_ms_min": decode_ms[0],
+           "decode_step_ms_max": decode_ms[-1],
+           "tokens": run.n_tokens, "seconds": run.seconds,
+           "tokens_per_s": run.n_tokens / run.seconds,
+           "max_memory_allocated": peak,
+           "kv_cache_bytes": kv_bytes,
+           "kv_cache_bytes_real_heads": kv_bytes * lay.n_kv // lay.kv_total,
+           "kv_heads_stored": lay.kv_total, "kv_heads_real": lay.n_kv,
+           "sample_row": run.tokens[0][0][:8].tolist()}
+    del run
+    free_card()
+    # one decode step of a fresh server (the same shapes), traced
+    mesh = make_host_mesh(1, 1)
+    pre = make_prefill_step(cfg, mesh, global_batch=LM_BATCH)
+    dec = make_decode_step(cfg, mesh, global_batch=LM_BATCH, model=pre.model)
+    params = pre.model.init(torch.Generator(device=device).manual_seed(0))
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in pre.model.parameters())
+    _, batch = lm_inputs(cfg, np.random.default_rng([SEED, 7]), LM_BATCH,
+                         prompt_len, device)
+    logits, cache = pre.jit()(params, batch(prompt_len))
+    cur = cache["k"].shape[2]
+    cache = pad_cache(cache, LM_GEN)
+    tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+    pos = torch.full((LM_BATCH,), cur, dtype=torch.int32, device=device)
+    step = {"token": tok, "pos": pos}
+    dec.jit()(params, step, cache)           # warm
+    out["decode_step"] = device_kernels(lambda: dec.jit()(params, step,
+                                                          cache))
+    out["weight_bytes"] = weight_bytes
+    # a decode step reads every weight and the whole cache at least once
+    out["decode_bytes_bound_ms"] = (weight_bytes + kv_bytes) \
+        / PEAK_BYTES_S * 1e3
+    del pre, dec, params, cache, logits
+    free_card()
+    return out
+
+
+def decode_equivalence(device, arch: str) -> dict:
+    """(b) The full-width model in float32, TF32 off: prefill 64 tokens,
+    stream 4 teacher-forced decode steps, each step's logits against a
+    prefill of the longer sequence (real columns, rtol = atol = 2e-4)."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.serve import pad_cache
+    from repro_torch.models import MeshInfo, build_model
+    cfg = dataclasses.replace(ARCHS[arch], dtype="float32")
+    restore = float32_exact()
+    try:
+        model = build_model(cfg, MeshInfo())
+        params = model.init(torch.Generator(device=device).manual_seed(1))
+        toks, batch = lm_inputs(cfg, np.random.default_rng([SEED, 8]),
+                                EQ_BATCH, EQ_PREFILL + EQ_STEPS, device)
+        logits, cache = model.prefill(params, batch(EQ_PREFILL))
+        cur = cache["k"].shape[2]
+        cache = pad_cache(cache, EQ_STEPS)
+        stream = [logits]
+        for t in range(EQ_STEPS - 1):
+            tok = torch.as_tensor(toks[:, EQ_PREFILL + t][:, None],
+                                  device=device)
+            pos = torch.full((EQ_BATCH,), cur + t, dtype=torch.int32,
+                             device=device)
+            logits, cache = model.decode(params, {"token": tok, "pos": pos},
+                                         cache)
+            stream.append(logits)
+        errs, worst = [], 0.0
+        for t in range(EQ_STEPS):
+            ref, _ = model.prefill(params, batch(EQ_PREFILL + t))
+            g = stream[t][:, :cfg.vocab].cpu().double()
+            r = ref[:, :cfg.vocab].cpu().double()
+            errs.append(float((g - r).abs().max()))
+            # assert_allclose's rule: |g - r| <= atol + rtol |r|
+            worst = max(worst, float(((g - r).abs()
+                                      / (EQ_TOL + EQ_TOL * r.abs())).max()))
+        check(worst <= 1.0,
+              f"{arch}: streamed decode misses the prefill oracle: max abs "
+              f"err per step {errs}, {worst} of the allowed")
+        out = {"steps": EQ_STEPS, "prefill": EQ_PREFILL, "batch": EQ_BATCH,
+               "max_abs_err": max(errs), "max_abs_err_per_step": errs,
+               "share_of_tolerance": worst, "rtol": EQ_TOL, "atol": EQ_TOL,
+               "tf32": False}
+    finally:
+        restore()
+        model = params = cache = None
+        free_card()
+    return out
+
+
+def lm_card_vs_cpu(device, arch: str) -> dict:
+    """(c) The smoke config in float32, TF32 off: one prefill and 3 decode
+    steps on the card and on the CPU from the same weights; logits within
+    1e-5 of the largest |logit|."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.launch.serve import pad_cache
+    from repro_torch.models import (MeshInfo, build_model, params_from_numpy,
+                                    params_to_numpy)
+    cfg = dataclasses.replace(smoke_config(ARCHS[arch]), dtype="float32")
+    restore = float32_exact()
+    runs, init = {}, None
+    try:
+        for dev in (torch.device("cpu"), device):
+            model = build_model(cfg, MeshInfo(), device=dev)
+            if init is None:
+                init = params_to_numpy(model.init(
+                    torch.Generator().manual_seed(2)))
+            params = params_from_numpy(model, init)
+            toks, batch = lm_inputs(cfg, np.random.default_rng([SEED, 9]),
+                                    2, 8 + LM_CPU_STEPS, dev)
+            logits, cache = model.prefill(params, batch(8))
+            cur = cache["k"].shape[2]
+            cache = pad_cache(cache, LM_CPU_STEPS)
+            out = [logits.cpu()]
+            for t in range(LM_CPU_STEPS):
+                logits, cache = model.decode(params, {
+                    "token": torch.as_tensor(toks[:, 8 + t][:, None],
+                                             device=dev),
+                    "pos": torch.full((2,), cur + t, dtype=torch.int32,
+                                      device=dev)}, cache)
+                out.append(logits.cpu())
+            runs[dev.type] = out
+    finally:
+        restore()
+    rel, pad_equal = 0.0, True
+    for g, c in zip(runs["cuda"], runs["cpu"]):
+        err, scale, same = real_err(g, c, cfg.vocab)
+        rel = max(rel, err / scale)
+        pad_equal = pad_equal and same
+    check(rel <= LM_CPU_TOL and pad_equal,
+          f"{arch}: card and CPU logits differ by {rel} of the largest "
+          f"(padded columns equal: {pad_equal})")
+    return {"steps": 1 + LM_CPU_STEPS, "max_rel_err": rel,
+            "padded_equal": pad_equal, "tf32": False}
+
+
+def phase_lm_serve(device, card: str) -> dict:
+    """LM serving for each family with attention: (a) the served run and
+    its decode step's kernels, (b) decode against the prefill oracle at
+    full width, (c) card against CPU on the smoke config.  Launches no
+    ``rgb_cuda`` (no LP is solved on this path)."""
+    from repro_torch.kernels.batch_lp import rgb_cuda
+    n0 = rgb_cuda.launches
+    t0 = time.perf_counter()
+    archs = []
+    for arch, prompt_len in LM_ARCHS:
+        ta = time.perf_counter()
+        out = {"phase": "lm_serve", **serve_arch(device, card, arch,
+                                                 prompt_len)}
+        out["decode_equivalence"] = decode_equivalence(device, arch)
+        out["card_vs_cpu"] = lm_card_vs_cpu(device, arch)
+        out["rgb_cuda_launches"] = rgb_cuda.launches - n0
+        out["seconds_all"] = time.perf_counter() - ta
+        out["card"] = card
+        emit(out)
+        archs.append(arch)
+    launches = rgb_cuda.launches - n0
+    check(launches == 0, f"the LM serving path launched rgb_cuda "
+          f"{launches} times")
+    return {"archs": archs, "rgb_cuda_launches": launches,
+            "seconds": time.perf_counter() - t0}
+
+
 def phase_train_kernel(device, card: str, lp_batch, launches: int) -> dict:
     """``rgb_cuda`` on the LP batch of one real training step, padded as
     the solver pads it (m to a lane, the batch to the tile with neutral
@@ -1275,6 +1562,7 @@ def main() -> int:
         phase_tune(device, card)
         rpc = phase_rpc(default_devices()[:1], card)
         train, lp_batch = phase_train(device, card)
+        phase_lm_serve(device, card)
         # Launches made from here on compare and time; the counts of the
         # main path have been read.
         entries.append(phase_train_kernel(device, card, lp_batch,

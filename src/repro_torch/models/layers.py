@@ -1,13 +1,18 @@
-"""Model layers of the dense decoder, in PyTorch: the reference's math.
+"""Model layers of the attention families, in PyTorch: the reference's math.
 
-Counterpart of ``repro.models.layers`` for the dense family on one card.
-The reference writes each function to run inside ``shard_map`` with
-explicit collectives over the ``model`` axis; here the collective helpers
-are the identity at ``model_size == 1`` and raise for a larger model axis
-(multi-card training is a later slice, ROADMAP A9g).  Every function is
-plain PyTorch, as the reference is plain ``jnp``: no kernel sits behind
-any of them (``flash_attention`` is the reference's chunked online
-softmax in torch ops, not ``scaled_dot_product_attention``).
+Counterpart of ``repro.models.layers`` for the dense, MoE, VLM and
+encoder-decoder families on one card, in training and in serving
+(``attn_layer`` in ``mode="prefill"|"decode"`` with its ``AttnCache``,
+``decode_attention``, ``lm_head_logits``).  The reference writes each
+function to run inside ``shard_map`` with explicit collectives over the
+``model`` axis; here the collective helpers are the identity at
+``model_size == 1`` and raise for a larger model axis (multi-card training
+is a later slice, ROADMAP A9g).  Every function is plain PyTorch, as the
+reference is plain ``jnp``: no kernel sits behind any of them
+(``flash_attention`` is the reference's chunked online softmax in torch
+ops, not ``scaled_dot_product_attention``; ``moe_layer`` is the
+reference's sort-based grouping in torch ops).  The Mamba2 layers are a
+later slice (ROADMAP A9e).
 
 Conventions (the reference's):
   d   = model width, B = batch, S = sequence
@@ -17,7 +22,8 @@ Conventions (the reference's):
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +46,13 @@ def _one_card(mi: MeshInfo) -> None:
         raise NotImplementedError(_MULTI_CARD)
 
 
+def _one_data_shard(mi: MeshInfo) -> None:
+    if mi.data_size > 1:
+        raise NotImplementedError(
+            "a data axis larger than 1 is not ported yet (ROADMAP A9g: "
+            "multi-card training)")
+
+
 def psum_model(x, mi: MeshInfo):
     _one_card(mi)
     return x
@@ -58,10 +71,7 @@ def model_rank(mi: MeshInfo) -> int:
 def gather_fsdp(p: Params, plan, mi: MeshInfo) -> Params:
     """The identity: with one data shard every leaf is whole.  FSDP over
     several cards is a later slice (ROADMAP A9g)."""
-    if mi.data_size > 1:
-        raise NotImplementedError(
-            "FSDP over several cards is not ported yet (ROADMAP A9g: "
-            "multi-card training)")
+    _one_data_shard(mi)
     return p
 
 
@@ -98,6 +108,14 @@ def apply_rope(x, cos, sin):
     else:
         cos, sin = cos[:, :, None, :], sin[:, :, None, :]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def sinusoid_pos_emb(S: int, d: int, dtype, device=None):
+    """(S, d) sinusoidal position table: sines, then cosines."""
+    pos = torch.arange(S, dtype=torch.float32, device=device)[:, None]
+    i = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / (1.0e4 ** (2 * i / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -194,9 +212,31 @@ def flash_attention(q, k, v, *, mask_mode="causal", prefix=0,
     return torch.cat(outs, dim=1)
 
 
+def decode_attention(q, k_cache, v_cache, pos):
+    """q (B,1,G,Qg,D); caches (B,Smax,G,D); pos (B,) current index.
+    Attends positions <= pos."""
+    B, _, G, Qg, D = q.shape
+    Smax = k_cache.shape[1]
+    scale = D ** -0.5
+    s = torch.einsum("bsgqd,btgd->bgqst", q, k_cache).float()
+    s = s * scale
+    ok = (torch.arange(Smax, device=q.device)[None, :]
+          <= pos.long()[:, None])  # (B, Smax)
+    s = torch.where(ok[:, None, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bgqst,btgd->bsgqd", p, v_cache)
+
+
 # ---------------------------------------------------------------------------
 # Attention layer (projections + the model-axis reduction)
 # ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class AttnCache:
+    k: torch.Tensor    # (B, Smax, kv_local, hd)
+    v: torch.Tensor
+    pos: torch.Tensor  # (B,) int32 next write index
+
 
 def attn_project_qkv(p: Params, x, layout: HeadLayout, *, qkv_bias: bool):
     B, S, _ = x.shape
@@ -227,48 +267,189 @@ def attn_layer(
     layout: HeadLayout,
     cfg: ModelConfig,
     *,
-    mode: str = "train",
+    mode: str = "train",          # train | prefill | decode
     mask_mode: str = "causal",
     prefix: int = 0,
     positions=None,               # (B, S) absolute positions for RoPE
+    cache: Optional[AttnCache] = None,
+    use_rope: bool = True,
+    kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ):
-    """Full GQA attention layer (``mode="train"``; prefill and decode,
-    with their cache, are the LM-serving slice, ROADMAP A9b).  Returns
-    ``(out (B,S,d), None)`` as the reference does in train mode."""
-    if mode != "train":
-        raise NotImplementedError(
-            f"attn_layer mode={mode!r}: prefill and decode come with LM "
-            "serving (ROADMAP A9b)")
+    """Full GQA attention layer.  Returns ``(out (B,S,d), new_cache)``:
+    ``None`` in train mode, the layer's K/V in prefill, and in decode the
+    cache with this token's K/V written **in place** at ``cache.pos``
+    (the reference returns an updated copy and donates the old one).
+
+    ``kv_override`` (cross-attention) replaces the layer's own K/V and
+    turns RoPE off; ``use_rope=False`` (the encoder-decoder) leaves q and
+    k unrotated."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"attn_layer mode={mode!r}")
     B, S, _ = x.shape
     hd = cfg.hd
     q, k, v = attn_project_qkv(p, x, layout, qkv_bias=cfg.qkv_bias)
-    if positions is None:
-        positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    cos, sin = rope_tables(positions, hd, cfg.rope_theta, x.dtype)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-    qg = _group_q(q, layout)
-    T = k.shape[1]
-    if max(S, T) > cfg.flash_threshold:
-        o = flash_attention(qg, k, v, mask_mode=mask_mode, prefix=prefix,
-                            static_steps=True)
+    if kv_override is not None:
+        k, v = kv_override
+    if use_rope and kv_override is None:
+        if positions is None:
+            positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        cos, sin = rope_tables(positions, hd, cfg.rope_theta, x.dtype)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+
+    new_cache = None
+    if mode == "decode":
+        assert cache is not None and S == 1
+        # lax.dynamic_update_slice clamps the start so the update fits;
+        # clamping here keeps an out-of-range pos from faulting (a CUDA
+        # device-side assert) and matches the reference with no host sync
+        idx = cache.pos.long().clamp(0, cache.k.shape[1] - 1)
+        rows = torch.arange(B, device=x.device)
+        cache.k[rows, idx] = k[:, 0]
+        cache.v[rows, idx] = v[:, 0]
+        new_cache = AttnCache(k=cache.k, v=cache.v, pos=cache.pos + 1)
+        o = decode_attention(_group_q(q, layout), cache.k, cache.v,
+                             cache.pos)
     else:
-        o = dense_attention(qg, k, v, mask_mode=mask_mode, prefix=prefix)
+        if mode == "prefill":
+            new_cache = AttnCache(
+                k=k, v=v, pos=torch.full((B,), S, dtype=torch.int32,
+                                         device=x.device))
+        qg = _group_q(q, layout)
+        T = k.shape[1]
+        if max(S, T) > cfg.flash_threshold:
+            o = flash_attention(qg, k, v, mask_mode=mask_mode, prefix=prefix,
+                                static_steps=(mode == "train"))
+        else:
+            o = dense_attention(qg, k, v, mask_mode=mask_mode, prefix=prefix)
     o = o.reshape(B, S, layout.hq_local * hd)
     out = psum_model(o @ p["wo"], mi)
-    return out, None
+    return out, new_cache
 
 
 # ---------------------------------------------------------------------------
-# MLP
+# MLPs
 # ---------------------------------------------------------------------------
 
-def mlp_glu(p: Params, x, mi: MeshInfo, *, gelu: bool = False):
-    """SwiGLU / GeGLU (``cfg.gelu_glu``)."""
+def mlp_glu(p: Params, x, mi: MeshInfo, *, gelu: bool = False,
+            psum: bool = True):
+    """SwiGLU / GeGLU (``cfg.gelu_glu``).  ``psum=False`` returns the
+    partial (pre-reduction) output so the caller can fuse several
+    row-parallel reductions into one."""
     g = x @ p["w_gate"]
     u = x @ p["w_up"]
     act = F.gelu(g, approximate="tanh") if gelu else silu(g)
-    return psum_model((act * u) @ p["w_down"], mi)
+    out = (act * u) @ p["w_down"]
+    return psum_model(out, mi) if psum else out
+
+
+def mlp_plain(p: Params, x, mi: MeshInfo):
+    """fc1 -> gelu -> fc2 (whisper-style)."""
+    h = F.gelu(x @ p["w_fc1"] + p["b_fc1"], approximate="tanh")
+    return psum_model(h @ p["w_fc2"], mi) + p["b_fc2"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts
+# ---------------------------------------------------------------------------
+
+def top_k_first(values, k: int):
+    """``lax.top_k``: the ``k`` largest entries of the last axis, largest
+    first, the lower index first among equal values (a stable descending
+    sort; ``torch.topk`` promises no order among ties)."""
+    vals, idx = torch.sort(values, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_layer(
+    p: Params,
+    x,
+    mi: MeshInfo,
+    cfg: ModelConfig,
+    *,
+    capacity_factor: float = 1.25,
+    gelu: bool = False,
+    psum: bool = True,
+):
+    """Sort-based grouped MoE, the reference's routing step for step.
+
+    p: w_router (d, E); w_gate/w_up (E_local, d, f); w_down (E_local, f, d).
+    x: (B, S, d).  Returns ``(y (B, S, d), aux)``.
+
+    Each expert takes at most ``C = int(cf * k * N / E) + 1`` tokens (a
+    host integer); the rest drop.  Kept tokens are gathered into their
+    expert's slots and each token's ``k`` weighted expert outputs are
+    gathered back and summed over ``k`` in the token's top-k order, so no
+    scatter-add (atomic, of varying order on a card) decides the result:
+    the combine is deterministic, and in float32 equals the reference's
+    ``.at[].add`` up to summation order."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    E_local = p["w_gate"].shape[0]
+    N = B * S
+    dev = x.device
+    xf = x.reshape(N, d)
+
+    logits = (xf @ p["w_router"]).float()  # (N, E)
+    probs = torch.softmax(logits, dim=-1)
+    top_vals, top_idx = top_k_first(probs, k)  # (N, k)
+    top_vals = top_vals / torch.sum(top_vals, dim=-1, keepdim=True)
+
+    e_start = model_rank(mi) * E_local
+    flat_e = top_idx.reshape(N * k)
+    flat_w = top_vals.reshape(N * k).to(x.dtype)
+    flat_tok = torch.arange(N, device=dev)[:, None].expand(N, k).reshape(-1)
+
+    local_e = flat_e - e_start
+    mine = (local_e >= 0) & (local_e < E_local)
+    key = torch.where(mine, local_e, E_local)  # non-mine -> overflow bucket
+    order = torch.argsort(key, stable=True)     # jnp.argsort is stable
+    s_key = key[order]
+    s_tok = flat_tok[order]
+    s_w = flat_w[order]
+
+    C = int(capacity_factor * k * N / E) + 1
+    # jnp.bincount(key, length=E_local + 1), without the host sync that
+    # torch.bincount takes on a card to size its output
+    counts = torch.zeros(E_local + 1, dtype=torch.long, device=dev)
+    counts.scatter_add_(0, key, torch.ones_like(key))
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(N * k, device=dev) - starts[s_key]
+    keep = (s_key < E_local) & (pos < C)
+    slot = torch.where(keep, s_key * C + pos, 0)
+
+    # kept slots are distinct; dropped entries land in a spare last row
+    dump = E_local * C
+    xb = x.new_zeros((dump + 1, d)).index_put(
+        (torch.where(keep, slot, dump),), xf[s_tok])
+    xb = xb[:dump].reshape(E_local, C, d)
+
+    g = torch.bmm(xb, p["w_gate"])
+    u = torch.bmm(xb, p["w_up"])
+    act = F.gelu(g, approximate="tanh") if gelu else silu(g)
+    yb = torch.bmm(act * u, p["w_down"]).reshape(E_local * C, d)
+
+    contrib = yb[slot] * (s_w * keep.to(x.dtype))[:, None]
+    # back from expert order to (token, choice) order: order is a
+    # permutation, so this scatter writes every row once
+    per_choice = torch.empty_like(contrib).index_put((order,), contrib)
+    y = per_choice.reshape(N, k, d).sum(dim=1)
+    if psum:
+        y = psum_model(y, mi)
+
+    aux = _load_balance_loss(probs, top_idx, E)
+    # the reference averages aux over data shards: one shard here
+    _one_data_shard(mi)
+    return y.reshape(B, S, d), aux
+
+
+def _load_balance_loss(probs, top_idx, E):
+    """Switch-style auxiliary load-balancing loss."""
+    onehot = F.one_hot(top_idx, E).float()  # (N, k, E)
+    k = top_idx.shape[1]
+    frac_tokens = torch.mean(torch.sum(onehot, dim=1), dim=0)  # (E,)
+    frac_probs = torch.mean(probs, dim=0)
+    return E * torch.sum(frac_tokens * frac_probs) / k
 
 
 # ---------------------------------------------------------------------------
@@ -321,3 +502,12 @@ def lm_head_loss(h, table, labels, mi: MeshInfo, *, vocab_real: int):
     loss = (lse - lab_logit) * valid
     n = torch.clamp(torch.sum(valid), min=1)
     return torch.sum(loss) / n, n
+
+
+def lm_head_logits(h, table, mi: MeshInfo, *, vocab_real: int):
+    """Full logits for serving, float32, the padded vocabulary's columns
+    set to ``NEG_INF``.  h (B, S, d) -> (B, S, V_pad)."""
+    _one_card(mi)  # the reference all-gathers vocab shards beyond one
+    logits = torch.einsum("bsd,vd->bsv", h, table).float()
+    gid = torch.arange(logits.shape[-1], device=h.device)
+    return torch.where((gid < vocab_real)[None, None, :], logits, NEG_INF)

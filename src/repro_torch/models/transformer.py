@@ -1,25 +1,36 @@
-"""The dense decoder LM as an ``nn.Module``, in the reference's layout.
+"""The attention-based model families as ``nn.Module``s, in the reference's
+layout: the decoder LM (``dense``, ``moe``, ``vlm``) and the
+encoder-decoder (``encdec``).
 
-Counterpart of ``repro.models.transformer`` for ``family == "dense"`` on
-one card.  ``DecoderLM`` holds one ``nn.Parameter`` per leaf of the
-reference's parameter tree, under the reference's names and in its
-**stacked** layout: ``emb``, ``lm_head``, ``final_norm`` and
-``blocks/{wq,wk,wv,wo,bq,bk,bv,ln1,ln2,w_gate,w_up,w_down}``, each block
-leaf shaped ``(n_layers, ...)``.  It is not split into per-layer modules
-because the LP trust-region clip (``optim.lp_clip``) poses one LP per
-leaf: another split would change the LP batch and its answer.
+Counterpart of ``repro.models.transformer`` on one card.  Each model holds
+one ``nn.Parameter`` per leaf of the reference's parameter tree, under the
+reference's names and in its **stacked** layout: ``DecoderLM`` has
+``emb``, ``lm_head``, ``final_norm``, ``blocks/{wq,wk,wv,wo,bq,bk,bv,ln1,
+ln2,w_gate,w_up,w_down,w_router,dw_gate,dw_up,dw_down}`` (as the config
+asks) and, for the VLM, ``vis_proj``/``vis_out``; ``EncDecLM`` has
+``enc/...`` and ``dec/...`` stacks (the decoder's cross-attention under
+``x_``) with ``enc_norm``.  Each block leaf is shaped ``(n_layers, ...)``.
+The stacks are not split into per-layer modules because the LP
+trust-region clip (``optim.lp_clip``) poses one LP per leaf: another split
+would change the LP batch and its answer.
 
     model = build_model(cfg, mi, device="cpu")   # the card by default
     params = model.init(torch.Generator().manual_seed(0))  # the tree
     loss, metrics = model.loss(params, batch)
+    logits, cache = model.prefill(params, batch)   # last position's logits
+    cache = ...                                    # grown to the full length
+    logits, cache = model.decode(params, {"token": t, "pos": p}, cache)
 
 The layer scan is a loop over layer slices (``unbind`` of each stacked
-leaf, so the backward stacks the per-layer gradients once), each block
-under ``torch.utils.checkpoint`` (non-reentrant) when ``cfg.remat``.
+leaf, so the backward stacks the per-layer gradients once), each training
+block under ``torch.utils.checkpoint`` (non-reentrant) when ``cfg.remat``.
+``prefill`` and ``decode`` run without autograd; ``decode`` writes each
+new token's K/V into the cache it is given, **in place** (the reference
+returns a new cache and its serving step donates the old one).
 Weights cross between the packages as numpy: :func:`params_from_numpy`
 loads the reference's ``model.init(key)`` tree, :func:`params_to_numpy`
-gives the port's parameters back in that tree.  The ``moe``, ``vlm``,
-``ssm``, ``hybrid`` and ``encdec`` families are later slices.
+gives the port's parameters back in that tree.  The ``ssm`` and
+``hybrid`` families are a later slice (ROADMAP A9e).
 """
 from __future__ import annotations
 
@@ -41,11 +52,8 @@ Params = Dict[str, Any]
 
 # Where each family not ported yet is queued.
 _LATER = {
-    "moe": "ROADMAP A9c (MoE)",
-    "vlm": "ROADMAP A9d (VLM)",
     "ssm": "ROADMAP A9e (SSM/hybrid)",
     "hybrid": "ROADMAP A9e (SSM/hybrid)",
-    "encdec": "ROADMAP A9f (encoder-decoder)",
 }
 
 
@@ -140,6 +148,14 @@ class BaseModel(nn.Module):
         self.fsdp_size = mi.data_size if cfg.fsdp else 1
         self.device = as_device(device)
 
+    def _param(self, shape) -> nn.Parameter:
+        return nn.Parameter(torch.empty(shape, dtype=_dt(self.cfg),
+                                        device=self.device))
+
+    def _stack(self, shapes: Dict[str, tuple]) -> nn.ParameterDict:
+        return nn.ParameterDict({k: self._param(s)
+                                 for k, s in shapes.items()})
+
     def param_tree(self) -> Params:
         """The parameters as the reference's nested dict (the
         ``nn.Parameter`` objects themselves, not copies)."""
@@ -153,32 +169,62 @@ class BaseModel(nn.Module):
     def loss(self, params, batch):
         raise NotImplementedError
 
+    def prefill(self, params, batch):
+        raise NotImplementedError
+
+    def decode(self, params, batch, caches):
+        raise NotImplementedError
+
+    def init_cache(self, B: int, s_max: int):
+        raise NotImplementedError
+
+    def _remat(self, mode: str) -> bool:
+        # remat only matters to a backward pass
+        return self.cfg.remat and mode == "train" and torch.is_grad_enabled()
+
+
+def _layer_slices(stack: Params, n_layers: int):
+    """``(names, layers)``: ``layers[i]`` holds layer ``i``'s leaves in the
+    order of ``names`` (sorted), each stacked leaf ``unbind`` once."""
+    names = sorted(stack)
+    per = [stack[k].unbind(0) for k in names]
+    return names, [[s[i] for s in per] for i in range(n_layers)]
+
+
+@torch.no_grad()
+def _put(stack, name: str, value: torch.Tensor) -> None:
+    """Write one freshly drawn leaf into its parameter (and let the draw
+    go: at full width the float32 draws are larger than the model)."""
+    stack[name].copy_(value)
+
+
+def _stack_caches(caches, keys=("k", "v", "pos")):
+    return {k: torch.stack([c[k] for c in caches]) for k in keys}
+
 
 # ---------------------------------------------------------------------------
-# Decoder-only LM: dense
+# Decoder-only LM: dense / MoE / VLM (prefix-LM)
 # ---------------------------------------------------------------------------
 
 class DecoderLM(BaseModel):
     def __init__(self, cfg: ModelConfig, mi: MeshInfo,
                  device: DeviceLike = None):
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"{cfg.name}: family {cfg.family!r} is not ported yet "
-                f"({_LATER.get(cfg.family, 'ROADMAP A9c-A9f')})")
+        if cfg.family not in ("dense", "moe", "vlm"):
+            raise ValueError(f"{cfg.name}: DecoderLM does not build family "
+                             f"{cfg.family!r}")
         super().__init__(cfg, mi, device)
         self.lay = head_layout(cfg, self.tp)
-        dt = _dt(cfg)
-
-        def param(shape):
-            return nn.Parameter(torch.empty(shape, dtype=dt,
-                                            device=self.device))
-
+        self.e_local = cfg.n_experts // self.tp if cfg.n_experts else 0
+        if cfg.n_experts and cfg.n_experts % self.tp:
+            raise ValueError(f"{cfg.name}: n_experts % tp != 0")
         d = cfg.d_model
-        self.emb = param((self.v_pad, d))
-        self.lm_head = param((self.v_pad, d))
-        self.final_norm = param((d,))
-        self.blocks = nn.ParameterDict(
-            {k: param(s) for k, s in self._block_shapes().items()})
+        self.emb = self._param((self.v_pad, d))
+        self.lm_head = self._param((self.v_pad, d))
+        self.final_norm = self._param((d,))
+        self.blocks = self._stack(self._block_shapes())
+        if cfg.family == "vlm":
+            self.vis_proj = self._param((d, d))
+            self.vis_out = self._param((d, d))
 
     def _block_shapes(self):
         cfg, lay, Lr = self.cfg, self.lay, self.cfg.n_layers
@@ -186,39 +232,70 @@ class DecoderLM(BaseModel):
         sh = dict(attn_param_shapes(cfg, lay, Lr))
         sh["ln1"] = (Lr, d)
         sh["ln2"] = (Lr, d)
-        sh["w_gate"] = (Lr, d, f)
-        sh["w_up"] = (Lr, d, f)
-        sh["w_down"] = (Lr, f, d)
+        if cfg.n_experts:
+            sh["w_router"] = (Lr, d, cfg.n_experts)
+            sh["w_gate"] = (Lr, cfg.n_experts, d, f)
+            sh["w_up"] = (Lr, cfg.n_experts, d, f)
+            sh["w_down"] = (Lr, cfg.n_experts, f, d)
+            if cfg.moe_dense_ff:
+                df = cfg.moe_dense_ff
+                sh["dw_gate"] = (Lr, d, df)
+                sh["dw_up"] = (Lr, d, df)
+                sh["dw_down"] = (Lr, df, d)
+        else:
+            sh["w_gate"] = (Lr, d, f)
+            sh["w_up"] = (Lr, d, f)
+            sh["w_down"] = (Lr, f, d)
         return sh
 
     def param_tree(self) -> Params:
-        return {"emb": self.emb, "lm_head": self.lm_head,
+        tree = {"emb": self.emb, "lm_head": self.lm_head,
                 "final_norm": self.final_norm,
                 "blocks": dict(self.blocks.items())}
+        if self.cfg.family == "vlm":
+            tree["vis_proj"] = self.vis_proj
+            tree["vis_out"] = self.vis_out
+        return tree
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> Params:
         """Fill the parameters in place from ``generator`` (on the
         parameters' device) in the reference's draw order; returns
         :meth:`param_tree`."""
-        cfg, lay = self.cfg, self.lay
+        cfg, lay, g = self.cfg, self.lay, generator
         dt, dev = _dt(cfg), self.device
         d, f, Lr = cfg.d_model, cfg.d_ff, cfg.n_layers
         out_scale = 0.02 / (2 * Lr) ** 0.5
-        blocks = init_attn_params(generator, cfg, lay, Lr, out_scale, dev)
-        blocks["ln1"] = torch.ones((Lr, d), dtype=dt, device=dev)
-        blocks["ln2"] = torch.ones((Lr, d), dtype=dt, device=dev)
-        blocks["w_gate"] = _dense_init(generator, (Lr, d, f), dt, dev)
-        blocks["w_up"] = _dense_init(generator, (Lr, d, f), dt, dev)
-        blocks["w_down"] = _dense_init(generator, (Lr, f, d), dt, dev,
-                                       out_scale)
-        tree = {
-            "emb": _dense_init(generator, (self.v_pad, d), dt, dev),
-            "lm_head": _dense_init(generator, (self.v_pad, d), dt, dev),
-            "final_norm": torch.ones((d,), dtype=dt, device=dev),
-            "blocks": blocks,
-        }
-        copy_into_(self.param_tree(), tree)
+        blk = self.blocks
+        for k, v in init_attn_params(g, cfg, lay, Lr, out_scale,
+                                     dev).items():
+            _put(blk, k, v)
+        blk["ln1"].fill_(1)
+        blk["ln2"].fill_(1)
+        if cfg.n_experts:
+            E = cfg.n_experts
+            _put(blk, "w_router", _dense_init(g, (Lr, d, E), dt, dev))
+            _put(blk, "w_gate", _dense_init(g, (Lr, E, d, f), dt, dev))
+            _put(blk, "w_up", _dense_init(g, (Lr, E, d, f), dt, dev))
+            _put(blk, "w_down", _dense_init(g, (Lr, E, f, d), dt, dev,
+                                            out_scale))
+            if cfg.moe_dense_ff:
+                df = cfg.moe_dense_ff
+                _put(blk, "dw_gate", _dense_init(g, (Lr, d, df), dt, dev))
+                _put(blk, "dw_up", _dense_init(g, (Lr, d, df), dt, dev))
+                _put(blk, "dw_down", _dense_init(g, (Lr, df, d), dt, dev,
+                                                 out_scale))
+        else:
+            _put(blk, "w_gate", _dense_init(g, (Lr, d, f), dt, dev))
+            _put(blk, "w_up", _dense_init(g, (Lr, d, f), dt, dev))
+            _put(blk, "w_down", _dense_init(g, (Lr, f, d), dt, dev,
+                                            out_scale))
+        self.emb.copy_(_dense_init(g, (self.v_pad, d), dt, dev))
+        self.lm_head.copy_(_dense_init(g, (self.v_pad, d), dt, dev))
+        self.final_norm.fill_(1)
+        if cfg.family == "vlm":
+            self.vis_proj.copy_(_dense_init(g, (d, d), dt, dev))
+            self.vis_out.copy_(_dense_init(g, (d, d), dt, dev))
         return self.param_tree()
 
     def kv_duplication(self):
@@ -226,27 +303,70 @@ class DecoderLM(BaseModel):
                 for k, v in kv_duplication(self.cfg, self.lay).items()}
 
     # -- forward ------------------------------------------------------------
-    def _block(self, h, names, *leaves):
+    def _block(self, h, names, *leaves, mode="train", mask_mode="causal",
+               prefix=0, positions=None, cache=None):
         cfg, mi = self.cfg, self.mi
         p = dict(zip(names, leaves))
-        a, _ = L.attn_layer(p, L.rms_norm(h, p["ln1"], cfg.norm_eps), mi,
-                            self.lay, cfg, mode="train")
+        a, new_cache = L.attn_layer(
+            p, L.rms_norm(h, p["ln1"], cfg.norm_eps), mi, self.lay, cfg,
+            mode=mode, mask_mode=mask_mode, prefix=prefix,
+            positions=positions, cache=cache)
         h = h + a
         hn = L.rms_norm(h, p["ln2"], cfg.norm_eps)
-        return h + L.mlp_glu(p, hn, mi, gelu=cfg.gelu_glu)
-
-    def _trunk(self, params, h):
-        cfg = self.cfg
-        names = sorted(params["blocks"])
-        per_layer = [params["blocks"][k].unbind(0) for k in names]
-        for i in range(cfg.n_layers):
-            leaves = [s[i] for s in per_layer]
-            if cfg.remat:
-                h = checkpoint(self._block, h, names, *leaves,
-                               use_reentrant=False)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        if cfg.n_experts:
+            # the reference's capacity policy: training tolerates drops
+            # (GShard cf=1.25); serving must not drop tokens — decode
+            # takes worst-case capacity (token counts are tiny), prefill
+            # a generous 8x
+            cf = (1.25 if mode == "train"
+                  else float(cfg.n_experts) if mode == "decode" else 8.0)
+            if cfg.moe_dense_ff:
+                # the MoE combine and the dense residual FFN add into the
+                # same residual stream: one reduction for both
+                y, aux = L.moe_layer(p, hn, mi, cfg, gelu=cfg.gelu_glu,
+                                     psum=False, capacity_factor=cf)
+                dp = {"w_gate": p["dw_gate"], "w_up": p["dw_up"],
+                      "w_down": p["dw_down"]}
+                y = y + L.mlp_glu(dp, hn, mi, gelu=cfg.gelu_glu, psum=False)
+                y = L.psum_model(y, mi)
             else:
-                h = self._block(h, names, *leaves)
-        return L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+                y, aux = L.moe_layer(p, hn, mi, cfg, gelu=cfg.gelu_glu,
+                                     capacity_factor=cf)
+        else:
+            y = L.mlp_glu(p, hn, mi, gelu=cfg.gelu_glu)
+        return h + y, aux, new_cache
+
+    def _trunk(self, params, h, *, mode="train", mask_mode="causal",
+               prefix=0, positions=None, caches=None):
+        """The block stack.  ``caches``: the stacked ``(L, ...)`` cache
+        (decode).  Returns ``(h, aux, new_caches)``; ``new_caches`` is
+        the stacked prefill cache, or ``caches`` updated in place."""
+        cfg = self.cfg
+        names, layers = _layer_slices(params["blocks"], cfg.n_layers)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        kw = dict(mode=mode, mask_mode=mask_mode, prefix=prefix,
+                  positions=positions)
+        new = []
+        for i, leaves in enumerate(layers):
+            cache = (L.AttnCache(k=caches["k"][i], v=caches["v"][i],
+                                 pos=caches["pos"][i])
+                     if caches is not None else None)
+            if self._remat(mode):
+                h, aux_l, c = checkpoint(self._block, h, names, *leaves,
+                                         use_reentrant=False, cache=cache,
+                                         **kw)
+            else:
+                h, aux_l, c = self._block(h, names, *leaves, cache=cache,
+                                          **kw)
+            aux = aux + aux_l
+            if c is not None:
+                new.append({"k": c.k, "v": c.v, "pos": c.pos})
+        h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+        if caches is not None:
+            caches["pos"].copy_(torch.stack([c["pos"] for c in new]))
+            return h, aux, caches
+        return h, aux, (_stack_caches(new) if new else None)
 
     def _embed(self, params, ids):
         cfg = self.cfg
@@ -256,32 +376,333 @@ class DecoderLM(BaseModel):
                                  device=h.device)
         return h
 
-    def loss(self, params, batch):
-        """``(loss, {"ce", "aux", "tokens"})`` for ``batch``
-        ``{"tokens", "labels"}`` (B, S), as the reference's
-        ``DecoderLM.loss``.  ``params`` is normally
-        :meth:`param_tree`."""
+    def _inputs(self, params, batch):
+        """Token embedding (+ VLM patch prefix).  Returns (h, prefix_len,
+        positions)."""
         cfg = self.cfg
         h = self._embed(params, batch["tokens"])
-        h = self._trunk(params, h)
-        loss, n = L.lm_head_loss(h, params["lm_head"], batch["labels"],
-                                 self.mi, vocab_real=cfg.vocab)
-        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+        prefix = 0
+        if cfg.family == "vlm" and "patches" in batch:
+            patches = batch["patches"]
+            # jnp promotes float32 patches against bf16 weights; torch's
+            # matmul takes one dtype, so promote first, as jnp does
+            dt = torch.promote_types(patches.dtype, params["vis_proj"].dtype)
+            pe = (patches.to(dt) @ params["vis_proj"].to(dt)
+                  @ params["vis_out"].to(dt))
+            h = torch.cat([pe.to(h.dtype), h], dim=1)
+            prefix = patches.shape[1]
+        B, S = h.shape[0], h.shape[1]
+        positions = torch.arange(S, device=h.device)[None].expand(B, S)
+        return h, prefix, positions
+
+    def _mask_mode(self) -> str:
+        return "prefix" if self.cfg.family == "vlm" else "causal"
+
+    def loss(self, params, batch):
+        """``(loss, {"ce", "aux", "tokens"})`` for ``batch``
+        ``{"tokens", "labels"}`` (B, S) (+ ``"patches"`` for the VLM), as
+        the reference's ``DecoderLM.loss``.  ``params`` is normally
+        :meth:`param_tree`."""
+        cfg = self.cfg
+        h, prefix, pos = self._inputs(params, batch)
+        h, aux, _ = self._trunk(params, h, mode="train",
+                                mask_mode=self._mask_mode(), prefix=prefix,
+                                positions=pos)
+        labels = batch["labels"]
+        if prefix:
+            pad = torch.full((labels.shape[0], prefix), -1,
+                             dtype=labels.dtype, device=labels.device)
+            labels = torch.cat([pad, labels], dim=1)
+        loss, n = L.lm_head_loss(h, params["lm_head"], labels, self.mi,
+                                 vocab_real=cfg.vocab)
         return loss + 0.01 * aux / max(cfg.n_layers, 1), {
             "ce": loss, "aux": aux, "tokens": n}
+
+    @torch.no_grad()
+    def prefill(self, params, batch):
+        """``(logits (B, V_pad) of the last position, cache)``; the cache
+        is ``{"k", "v": (L, B, S, kv_total, hd), "pos": (L, B)}`` with
+        ``S`` the whole input (the VLM's patch prefix included)."""
+        cfg = self.cfg
+        h, prefix, pos = self._inputs(params, batch)
+        h, _, caches = self._trunk(params, h, mode="prefill",
+                                   mask_mode=self._mask_mode(),
+                                   prefix=prefix, positions=pos)
+        logits = L.lm_head_logits(h[:, -1:], params["lm_head"], self.mi,
+                                  vocab_real=cfg.vocab)
+        return logits[:, 0], caches
+
+    @torch.no_grad()
+    def decode(self, params, batch, caches):
+        """One token a row: ``batch`` ``{"token": (B, 1), "pos": (B,)}``
+        (``pos`` the RoPE position).  Writes into ``caches`` in place and
+        returns ``(logits (B, V_pad), caches)``."""
+        cfg = self.cfg
+        h = self._embed(params, batch["token"])
+        pos = batch["pos"][:, None]
+        h, _, caches = self._trunk(params, h, mode="decode",
+                                   mask_mode="causal", prefix=0,
+                                   positions=pos, caches=caches)
+        logits = L.lm_head_logits(h, params["lm_head"], self.mi,
+                                  vocab_real=cfg.vocab)
+        return logits[:, 0], caches
+
+    # -- caches -------------------------------------------------------------
+    def init_cache(self, B: int, s_max: int):
+        cfg, lay = self.cfg, self.lay
+        kv = (cfg.n_layers, B, s_max, lay.kv_total, cfg.hd)
+        return {
+            "k": torch.zeros(kv, dtype=_dt(cfg), device=self.device),
+            "v": torch.zeros(kv, dtype=_dt(cfg), device=self.device),
+            "pos": torch.zeros((cfg.n_layers, B), dtype=torch.int32,
+                               device=self.device),
+        }
+
+
+# ---------------------------------------------------------------------------
+# Encoder-decoder (whisper)
+# ---------------------------------------------------------------------------
+
+class EncDecLM(BaseModel):
+    """Whisper-style: stub conv frontend (precomputed frame embeddings in),
+    bidirectional encoder, causal decoder with cross-attention."""
+
+    def __init__(self, cfg: ModelConfig, mi: MeshInfo,
+                 device: DeviceLike = None):
+        super().__init__(cfg, mi, device)
+        self.lay = head_layout(cfg, self.tp)
+        d = cfg.d_model
+        self.emb = self._param((self.v_pad, d))
+        self.lm_head = self._param((self.v_pad, d))
+        self.enc_norm = self._param((d,))
+        self.final_norm = self._param((d,))
+        self.enc = self._stack(self._enc_shapes())
+        self.dec = self._stack(self._dec_shapes())
+
+    def _mlp_shapes(self, Lr):
+        d, f = self.cfg.d_model, self.cfg.d_ff
+        return {"w_fc1": (Lr, d, f), "b_fc1": (Lr, f),
+                "w_fc2": (Lr, f, d), "b_fc2": (Lr, d)}
+
+    def _enc_shapes(self):
+        cfg, Lr = self.cfg, self.cfg.enc_layers
+        sh = dict(attn_param_shapes(cfg, self.lay, Lr))
+        sh.update({"ln1": (Lr, cfg.d_model), "ln2": (Lr, cfg.d_model)})
+        sh.update(self._mlp_shapes(Lr))
+        return sh
+
+    def _dec_shapes(self):
+        cfg, Lr = self.cfg, self.cfg.n_layers
+        d = cfg.d_model
+        sh = dict(attn_param_shapes(cfg, self.lay, Lr))
+        sh.update({f"x_{k}": v for k, v in
+                   attn_param_shapes(cfg, self.lay, Lr).items()})
+        sh.update({"ln1": (Lr, d), "ln_x": (Lr, d), "ln2": (Lr, d)})
+        sh.update(self._mlp_shapes(Lr))
+        return sh
+
+    def param_tree(self) -> Params:
+        return {"emb": self.emb, "lm_head": self.lm_head,
+                "enc_norm": self.enc_norm, "final_norm": self.final_norm,
+                "enc": dict(self.enc.items()), "dec": dict(self.dec.items())}
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> Params:
+        """Fill the parameters in place from ``generator`` in the
+        reference's draw order; returns :meth:`param_tree`."""
+        cfg, lay, g = self.cfg, self.lay, generator
+        dt, dev = _dt(cfg), self.device
+        d, f = cfg.d_model, cfg.d_ff
+
+        def mlp(stack, Lr, scale):
+            _put(stack, "w_fc1", _dense_init(g, (Lr, d, f), dt, dev))
+            stack["b_fc1"].zero_()
+            _put(stack, "w_fc2", _dense_init(g, (Lr, f, d), dt, dev, scale))
+            stack["b_fc2"].zero_()
+
+        es = 0.02 / (2 * cfg.enc_layers) ** 0.5
+        ds = 0.02 / (2 * cfg.n_layers) ** 0.5
+        for k, v in init_attn_params(g, cfg, lay, cfg.enc_layers, es,
+                                     dev).items():
+            _put(self.enc, k, v)
+        for k in ("ln1", "ln2"):
+            self.enc[k].fill_(1)
+        mlp(self.enc, cfg.enc_layers, es)
+        for k, v in init_attn_params(g, cfg, lay, cfg.n_layers, ds,
+                                     dev).items():
+            _put(self.dec, k, v)
+        for k, v in init_attn_params(g, cfg, lay, cfg.n_layers, ds,
+                                     dev).items():
+            _put(self.dec, f"x_{k}", v)
+        for k in ("ln1", "ln_x", "ln2"):
+            self.dec[k].fill_(1)
+        mlp(self.dec, cfg.n_layers, ds)
+        self.emb.copy_(_dense_init(g, (self.v_pad, d), dt, dev))
+        self.lm_head.copy_(_dense_init(g, (self.v_pad, d), dt, dev))
+        self.enc_norm.fill_(1)
+        self.final_norm.fill_(1)
+        return self.param_tree()
+
+    def kv_duplication(self):
+        out = {}
+        for k, v in kv_duplication(self.cfg, self.lay).items():
+            out[f"enc/{k}"] = v
+            out[f"dec/{k}"] = v
+            out[f"dec/x_{k}"] = v
+        return out
+
+    # -- forward ------------------------------------------------------------
+    def _enc_block(self, h, names, *leaves):
+        cfg, mi = self.cfg, self.mi
+        p = dict(zip(names, leaves))
+        a, _ = L.attn_layer(p, L.rms_norm(h, p["ln1"], cfg.norm_eps), mi,
+                            self.lay, cfg, mode="train", mask_mode="full",
+                            use_rope=False)
+        h = h + a
+        return h + L.mlp_plain(p, L.rms_norm(h, p["ln2"], cfg.norm_eps), mi)
+
+    def _encode(self, params, frames, mode):
+        cfg = self.cfg
+        B, S, d = frames.shape
+        dt = _dt(cfg)
+        h = frames.to(dt) + L.sinusoid_pos_emb(S, d, dt, frames.device)
+        names, layers = _layer_slices(params["enc"], cfg.enc_layers)
+        for leaves in layers:
+            if self._remat(mode):
+                h = checkpoint(self._enc_block, h, names, *leaves,
+                               use_reentrant=False)
+            else:
+                h = self._enc_block(h, names, *leaves)
+        return L.rms_norm(h, params["enc_norm"], cfg.norm_eps)
+
+    def _cross_kv(self, p_l, enc_out):
+        """Per-layer cross K/V from the encoder's output."""
+        B, S, _ = enc_out.shape
+        hd, kvl = self.cfg.hd, self.lay.kv_local
+        k = (enc_out @ p_l["x_wk"]).reshape(B, S, kvl, hd)
+        v = (enc_out @ p_l["x_wv"]).reshape(B, S, kvl, hd)
+        if self.cfg.qkv_bias:
+            k = k + p_l["x_bk"].reshape(1, 1, kvl, hd)
+            v = v + p_l["x_bv"].reshape(1, 1, kvl, hd)
+        return k, v
+
+    def _dec_block(self, h, names, *leaves, enc_out=None, mode="train",
+                   cache=None, cross_kv=None, positions=None):
+        cfg, mi = self.cfg, self.mi
+        p_l = dict(zip(names, leaves))
+        a, new_cache = L.attn_layer(
+            p_l, L.rms_norm(h, p_l["ln1"], cfg.norm_eps), mi, self.lay, cfg,
+            mode=mode, mask_mode="causal", positions=positions, cache=cache,
+            use_rope=False)
+        h = h + a
+        if cross_kv is None:
+            cross_kv = self._cross_kv(p_l, enc_out)
+        xp = {k[2:]: v for k, v in p_l.items() if k.startswith("x_")}
+        xa, _ = L.attn_layer(
+            xp, L.rms_norm(h, p_l["ln_x"], cfg.norm_eps), mi, self.lay, cfg,
+            mode="train", mask_mode="full", use_rope=False,
+            kv_override=cross_kv)
+        h = h + xa
+        h = h + L.mlp_plain(p_l, L.rms_norm(h, p_l["ln2"], cfg.norm_eps), mi)
+        return h, new_cache, cross_kv
+
+    def _decode_trunk(self, params, h, enc_out, *, mode, caches, positions):
+        """The decoder stack.  Returns ``(h, new_caches)``: the stacked
+        prefill cache (self K/V and cross ``xk``/``xv``), ``caches``
+        updated in place (decode), or ``None`` (train)."""
+        cfg = self.cfg
+        names, layers = _layer_slices(params["dec"], cfg.n_layers)
+        new = []
+        for i, leaves in enumerate(layers):
+            cache, cross = None, None
+            if caches is not None:
+                cache = L.AttnCache(k=caches["k"][i], v=caches["v"][i],
+                                    pos=caches["pos"][i])
+                cross = (caches["xk"][i], caches["xv"][i])
+            kw = dict(enc_out=enc_out, mode=mode, cache=cache,
+                      cross_kv=cross, positions=positions)
+            if self._remat(mode):
+                h, c, cross = checkpoint(self._dec_block, h, names, *leaves,
+                                         use_reentrant=False, **kw)
+            else:
+                h, c, cross = self._dec_block(h, names, *leaves, **kw)
+            if c is not None:
+                new.append({"k": c.k, "v": c.v, "pos": c.pos,
+                            "xk": cross[0], "xv": cross[1]})
+        h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+        if caches is not None:
+            caches["pos"].copy_(torch.stack([c["pos"] for c in new]))
+            return h, caches
+        return h, (_stack_caches(new, ("k", "v", "pos", "xk", "xv"))
+                   if new else None)
+
+    def _tokens(self, params, tokens):
+        S = tokens.shape[1]
+        h = L.embed_lookup(params["emb"], tokens, self.mi)
+        return h + L.sinusoid_pos_emb(S, self.cfg.d_model, h.dtype, h.device)
+
+    def loss(self, params, batch):
+        """``(loss, {"ce", "tokens"})`` for ``{"frames", "tokens",
+        "labels"}``, as the reference's ``EncDecLM.loss``."""
+        enc_out = self._encode(params, batch["frames"], "train")
+        h = self._tokens(params, batch["tokens"])
+        h, _ = self._decode_trunk(params, h, enc_out, mode="train",
+                                  caches=None, positions=None)
+        loss, n = L.lm_head_loss(h, params["lm_head"], batch["labels"],
+                                 self.mi, vocab_real=self.cfg.vocab)
+        return loss, {"ce": loss, "tokens": n}
+
+    @torch.no_grad()
+    def prefill(self, params, batch):
+        enc_out = self._encode(params, batch["frames"], "prefill")
+        h = self._tokens(params, batch["tokens"])
+        h, caches = self._decode_trunk(params, h, enc_out, mode="prefill",
+                                       caches=None, positions=None)
+        logits = L.lm_head_logits(h[:, -1:], params["lm_head"], self.mi,
+                                  vocab_real=self.cfg.vocab)
+        return logits[:, 0], caches
+
+    @torch.no_grad()
+    def decode(self, params, batch, caches):
+        """As :meth:`DecoderLM.decode`; the position table is as long as
+        the cache."""
+        cfg = self.cfg
+        h = L.embed_lookup(params["emb"], batch["token"], self.mi)
+        pos_emb = L.sinusoid_pos_emb(int(caches["k"].shape[2]), cfg.d_model,
+                                     h.dtype, h.device)
+        h = h + pos_emb[batch["pos"].long()][:, None]
+        h, caches = self._decode_trunk(params, h, None, mode="decode",
+                                       caches=caches,
+                                       positions=batch["pos"][:, None])
+        logits = L.lm_head_logits(h, params["lm_head"], self.mi,
+                                  vocab_real=cfg.vocab)
+        return logits[:, 0], caches
+
+    def init_cache(self, B: int, s_max: int):
+        cfg, lay = self.cfg, self.lay
+        Lr, dt, dev = cfg.n_layers, _dt(cfg), self.device
+
+        def zeros(S):
+            return torch.zeros((Lr, B, S, lay.kv_total, cfg.hd), dtype=dt,
+                               device=dev)
+        return {"k": zeros(s_max), "v": zeros(s_max),
+                "pos": torch.zeros((Lr, B), dtype=torch.int32, device=dev),
+                "xk": zeros(cfg.enc_seq), "xv": zeros(cfg.enc_seq)}
 
 
 def build_model(cfg: ModelConfig, mi: MeshInfo,
                 device: DeviceLike = None) -> BaseModel:
-    """The model for ``cfg`` on ``device`` (default: the card).  Families
-    other than ``dense`` raise ``NotImplementedError`` naming the ROADMAP
-    item that ports them."""
+    """The model for ``cfg`` on ``device`` (default: the card).  The
+    ``ssm`` and ``hybrid`` families raise ``NotImplementedError`` naming
+    the ROADMAP item that ports them."""
     if cfg.family in _LATER:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "
             f"({_LATER[cfg.family]})")
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
         return DecoderLM(cfg, mi, device)
+    if cfg.family == "encdec":
+        return EncDecLM(cfg, mi, device)
     raise ValueError(cfg.family)
 
 

@@ -2,7 +2,8 @@
 its plain PyTorch version on the same tensors, and the main paths on the card
 (solver, scheduler, pdhg, the tuner's fence, one RPC round trip, a full-width
 LP-clipped training step, train steps card against CPU, a bf16 checkpoint
-round trip).
+round trip, the MoE layer and a decode step card against CPU, the serving
+entry point on the card).
 
 Run them on a machine with a Hopper card and ``nvcc``::
 
@@ -468,3 +469,118 @@ def test_bf16_checkpoint_round_trip_on_the_card(card, tmp_path):
                  (st.step, state.step)):
         assert b.device.type == "cuda" and a.device == b.device
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _no_tf32():
+    """TF32 off for float32 card-vs-CPU checks; returns the old setting."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return old
+
+
+def test_moe_layer_on_the_card_matches_the_cpu(card):
+    """The sort-based MoE in float32 on the card and on the CPU, at the
+    three capacity factors the model uses: equal routing, outputs within
+    1e-5."""
+    from repro_torch.models import MeshInfo, ModelConfig
+    from repro_torch.models import layers as L
+    cfg = ModelConfig(name="t", family="moe", n_layers=1, d_model=64,
+                      n_heads=2, n_kv=2, d_ff=96, vocab=64, n_experts=16,
+                      top_k=4)
+    rng = np.random.default_rng(0)
+    p = {"w_router": rng.standard_normal((64, 16)) * 0.1,
+         "w_gate": rng.standard_normal((16, 64, 96)) * 0.1,
+         "w_up": rng.standard_normal((16, 64, 96)) * 0.1,
+         "w_down": rng.standard_normal((16, 96, 64)) * 0.1}
+    x = rng.standard_normal((4, 32, 64))
+    old = _no_tf32()
+    try:
+        for cf in (1.25, 8.0, 16.0):
+            out = {}
+            for dev in (torch.device("cpu"), card):
+                pt = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
+                      for k, v in p.items()}
+                xt = torch.as_tensor(x, dtype=torch.float32, device=dev)
+                y, aux = L.moe_layer(pt, xt, MeshInfo(), cfg,
+                                     capacity_factor=cf)
+                out[dev.type] = (y.cpu(), float(aux))
+            np.testing.assert_allclose(out["cuda"][0], out["cpu"][0],
+                                       rtol=1e-5, atol=1e-5)
+            np.testing.assert_allclose(out["cuda"][1], out["cpu"][1],
+                                       rtol=1e-6)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "olmoe-1b-7b",
+                                  "paligemma-3b", "whisper-base"])
+def test_decode_step_on_the_card_matches_the_cpu(card, arch):
+    """The smoke config in float32: prefill and one decode step on the
+    card and on the CPU from the same weights, TF32 off; logits within
+    1e-5 of the largest |logit|, the cache written in place on both."""
+    import dataclasses
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.launch.serve import pad_cache
+    from repro_torch.models import (MeshInfo, build_model,
+                                    params_from_numpy, params_to_numpy)
+    cfg = dataclasses.replace(smoke_config(ARCHS[arch]), dtype="float32")
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab, (2, 9)).astype(np.int32)
+    extra = {}
+    if cfg.family == "vlm":
+        extra["patches"] = rng.standard_normal((2, cfg.n_prefix,
+                                                cfg.d_model))
+    if cfg.family == "encdec":
+        extra["frames"] = rng.standard_normal((2, cfg.enc_seq, cfg.d_model))
+    old = _no_tf32()
+    init, out = None, {}
+    try:
+        for dev in (torch.device("cpu"), card):
+            model = build_model(cfg, MeshInfo(), device=dev)
+            if init is None:
+                init = params_to_numpy(model.init(
+                    torch.Generator().manual_seed(0)))
+            params = params_from_numpy(model, init)
+            batch = {"tokens": torch.as_tensor(toks[:, :8], device=dev)}
+            batch.update({k: torch.as_tensor(v, dtype=torch.float32,
+                                             device=dev)
+                          for k, v in extra.items()})
+            logits, cache = model.prefill(params, batch)
+            cur = cache["k"].shape[2]
+            cache = pad_cache(cache, 2)
+            k_before = cache["k"]
+            dec, cache = model.decode(
+                params, {"token": torch.as_tensor(toks[:, 8:], device=dev),
+                         "pos": torch.full((2,), cur, dtype=torch.int32,
+                                           device=dev)}, cache)
+            assert cache["k"] is k_before
+            out[dev.type] = (logits.cpu().numpy(), dec.cpu().numpy(),
+                             cache["k"].cpu().numpy())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    v = cfg.vocab
+    for i in (0, 1):
+        c, g = out["cpu"][i][:, :v], out["cuda"][i][:, :v]
+        assert np.abs(g - c).max() <= 1e-5 * np.abs(c).max()
+        np.testing.assert_array_equal(out["cpu"][i][:, v:],
+                                      out["cuda"][i][:, v:])
+    np.testing.assert_allclose(out["cuda"][2], out["cpu"][2], rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_serve_main_on_the_card_whisper_smoke(card, capsys):
+    """The serving entry point on the card: the encoder-decoder's smoke
+    config, a prompt as long as the encoder (the case in which the
+    reference would also grow ``xk``/``xv``)."""
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.launch.serve import main
+    cfg = smoke_config(ARCHS["whisper-base"])
+    run = main(["--arch", "whisper-base", "--smoke", "--requests", "4",
+                "--batch", "2", "--prompt-len", str(cfg.enc_seq),
+                "--gen", "5"])
+    out = capsys.readouterr().out
+    assert "[serve] 20 tokens in " in out
+    assert [t.shape for t in run.tokens] == [(2, 5), (2, 5)]
+    assert all(((t >= 0) & (t < cfg.vocab)).all() for t in run.tokens)
+    assert len(run.prefill_ms) == 2 and all(ms > 0 for ms in run.prefill_ms)
+    assert [len(d) for d in run.decode_ms] == [4, 4]

@@ -465,5 +465,12 @@ def test_train_step_no_nans(arch):
 @pytest.mark.parametrize("arch", sorted(a for a, c in ARCHS.items()
                                         if c.family != "dense"))
 def test_families_not_ported_yet_raise_naming_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        build_model(smoke_config(ARCHS[arch]), MI1, device="cpu")
+    """``ssm`` and ``hybrid`` are still to come (ROADMAP A9e); the other
+    families build since LM serving (``tests/test_torch_lm_serve.py``)."""
+    cfg = smoke_config(ARCHS[arch])
+    if cfg.family in ("ssm", "hybrid"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A9e"):
+            build_model(cfg, MI1, device="cpu")
+    else:
+        model = build_model(cfg, MI1, device="cpu")
+        assert model.cfg.family == cfg.family
