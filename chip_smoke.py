@@ -8,9 +8,10 @@ and the CUDA toolkit (``nvcc``)::
 
 It drives the port's main paths (``repro_torch`` only) on the card at sizes
 users would call real — the paper's figure-3 batch of 16384 problems at the
-README's example width of 256 constraints, Qwen2-0.5B trained at full
-width with the LP solver inside its optimizer, and four language models
-served at full width — and prints one JSON object per line:
+README's example width of 256 constraints, Qwen2-0.5B and Mamba2-1.3B
+trained at full width with the LP solver inside their optimizer, and six
+language models served at full width — and prints one JSON object per
+line:
 
 1. ``probe``   PyTorch / CUDA versions, device name and power limit, nvcc.
 2. ``build``   builds ``src/repro_torch/kernels/csrc/batch_lp.cu`` for
@@ -29,7 +30,7 @@ served at full width — and prints one JSON object per line:
    is done at every shape, tile and chunk the serving and RPC runs really
    launched the kernel with (read from the scheduler's executable cache).
    The ``kernels`` line is printed once, near the end, with the launch
-   counts of phases 4, 5, 8 and 9 (phase 10 launches none).
+   counts of phases 4, 5, 8, 9 and 9b (phase 10 launches none).
 4. ``solver``  ``SolverSpec(backend="auto").build().solve(...)`` on AoS and
    pre-packed batches: resolved to what the active tuning table names
    (the kernel on a miss), launch count advanced,
@@ -72,17 +73,27 @@ served at full width — and prints one JSON object per line:
    float32 takes three LP-clipped steps on the card and on the CPU from the
    same weights, TF32 off: loss and ``lp_s1`` within 1e-4, every leaf
    within 2e-6 (the CPU parity test's tolerance).
-10. ``lm_serve`` one line per architecture with attention served at full
-   width (qwen2-0.5b, olmoe-1b-7b, paligemma-3b, whisper-base):
+9b. ``train`` again for Mamba2-1.3B (the SSM family, 1.445 G parameters)
+   at full width in bf16 with ``--lp-clip``, batch 8 x 512, 6 steps
+   through the same entry point: every loss finite, ``lp_s1`` in [0, 1],
+   one ``rgb_cuda`` launch a step; the median step, peak memory and one
+   step's kernels; its 17-problem LP batch held against ``rgb_plain``
+   bit for bit (``path="train-mamba2"``), and card against CPU over three
+   float32 smoke steps to the bounds of 9.
+10. ``lm_serve`` one line per architecture served at full width
+   (qwen2-0.5b, olmoe-1b-7b, paligemma-3b, whisper-base, mamba2-1.3b,
+   zamba2-2.7b):
    (a) ``repro_torch.launch.serve.main`` in bf16, 16 requests in batches
    of 8, prompts of 512 tokens (paligemma-3b: 256 after its 256 patches),
    32 tokens generated each: every token in the vocabulary, the cache's
    bytes as its shape says; prefill ms and the decode steps' ms (CUDA
    events), tokens/s (host clock), peak memory, the KV cache's bytes
-   beside what the real KV heads would need, and one decode step's
-   kernels from a profiler trace; (b) the same model in float32 (TF32
-   off): 64 tokens prefilled, 4 teacher-forced decode steps, each step's
-   logits within rtol = atol = 2e-4 of a prefill of the longer sequence;
+   beside what the real KV heads would need (the SSM families: the
+   float32 state and the conv windows, which do not grow with the
+   sequence), and one decode step's kernels from a profiler trace; (b)
+   the same model in float32 (TF32 off): 64 tokens prefilled, 4
+   teacher-forced decode steps, each step's logits within rtol = atol =
+   2e-4 of a prefill of the longer sequence (one SSD chunk each);
    (c) the smoke config in float32, one prefill and 3 decode steps on the
    card and on the CPU from the same weights: logits within 1e-5 of the
    largest |logit|.  No LP is solved on this path: ``rgb_cuda`` is
@@ -1082,6 +1093,14 @@ def train_matmul_flops(cfg, lay, B: int, S: int) -> float:
     return 3 * (fwd_blocks + fwd_head) + (remat - 1) * fwd_blocks
 
 
+def step_lp_batch(updates, grads, opt_state, params) -> tuple:
+    """The LP batch ``lp_constrain_updates`` solves for these updates, as
+    numpy ``(A, b, c)``."""
+    from repro_torch.optim import lp_problems
+    A, b, c = lp_problems(updates, grads, opt_state.m, params)
+    return A.cpu().numpy(), b.cpu().numpy(), c.cpu().numpy()
+
+
 def split_step(device) -> tuple:
     """Where a full-width step's time goes: each stage of the step timed
     apart (CUDA events) on the same state, the GEMMs' share of the
@@ -1093,7 +1112,7 @@ def split_step(device) -> tuple:
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import layers as L
     from repro_torch.optim import (AdamW, apply_updates,
-                                   lp_constrain_updates, lp_problems,
+                                   lp_constrain_updates,
                                    sync_duplicated_grads)
     from repro_torch.tree import copy_into_, tree_leaves, tree_unflatten
 
@@ -1120,8 +1139,7 @@ def split_step(device) -> tuple:
     dup = model.kv_duplication()
     grads = sync_duplicated_grads(grads, dup, cfg.hd)
     updates, new_state = opt.update(grads, state, params)
-    A, b, c = lp_problems(updates, grads, new_state.m, params)
-    lp_batch = (A.cpu().numpy(), b.cpu().numpy(), c.cpu().numpy())
+    lp_batch = step_lp_batch(updates, grads, new_state, params)
     h = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model), device=device,
                     dtype=torch.bfloat16, requires_grad=True)
 
@@ -1155,7 +1173,7 @@ def split_step(device) -> tuple:
     return out, lp_batch
 
 
-def card_vs_cpu(device) -> dict:
+def card_vs_cpu(device, arch: str = TRAIN_ARCH) -> dict:
     """The smoke config in float32, three steps with the LP clip on the
     card and on the CPU from the same parameters (carried across as
     numpy), TF32 off: loss, lp_s1 and every leaf agree."""
@@ -1168,8 +1186,7 @@ def card_vs_cpu(device) -> dict:
     from repro_torch.models import params_from_numpy, params_to_numpy
     from repro_torch.optim import AdamW
 
-    cfg = dataclasses.replace(smoke_config(ARCHS[TRAIN_ARCH]),
-                              dtype="float32")
+    cfg = dataclasses.replace(smoke_config(ARCHS[arch]), dtype="float32")
     init = None
     runs = {}
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
@@ -1235,10 +1252,98 @@ def phase_train(device, card: str) -> dict:
     return out, lp_batch
 
 
+# The SSM family's training run: Mamba2-1.3B at full width, LP-clipped.
+TRAIN_SSM_ARCH, TRAIN_SSM_STEPS = "mamba2-1.3b", 6
+
+
+def phase_train_ssm(device, card: str) -> tuple:
+    """``repro_torch.launch.train.main`` on mamba2-1.3b at full width in
+    bf16 with ``--lp-clip``, 8 x 512 tokens, read right after its run
+    (rgb_cuda's count set to 0 just before); then one step of a fresh
+    model traced, the LP batch of that step, and card-vs-CPU parity on
+    the smoke config.  Returns the phase line and the LP batch."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.pipeline import TokenSource, for_model
+    from repro_torch.kernels.batch_lp import rgb_cuda
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamW, sync_duplicated_grads
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    arch, steps = TRAIN_SSM_ARCH, TRAIN_SSM_STEPS
+    t0 = time.perf_counter()
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    rgb_cuda.launches = 0
+    _, log = run_trainer(["--arch", arch, "--lp-clip", "--batch",
+                          str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                          "--log-every", "1", "--steps", str(steps)])
+    launches = rgb_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    run_s = time.perf_counter() - t0
+    rows = [(int(a), float(b), float(c), float(d))
+            for a, b, c, d in TRAIN_LOG.findall(log)]
+    check([r[0] for r in rows] == list(range(steps)),
+          f"{arch}: the trainer logged {log!r}")
+    losses, s1s = [r[1] for r in rows], [r[3] for r in rows]
+    check(all(np.isfinite(losses)), f"{arch}: a loss is not finite: "
+          f"{losses}")
+    check(all(0.0 <= x <= 1.0 for x in s1s),
+          f"{arch}: lp_s1 outside [0, 1]: {s1s}")
+    check(launches == steps, f"{arch}: rgb_cuda launched {launches} times "
+          f"in {steps} steps")
+    dts = sorted(r[2] for r in rows[1:])      # the first step starts up
+    median_ms = dts[len(dts) // 2]
+    free_card()
+
+    cfg = ARCHS[arch]
+    opt = AdamW()
+    prog = make_train_step(cfg, make_host_mesh(1, 1), opt,
+                           global_batch=TRAIN_BATCH, lp_clip=True)
+    model = prog.model
+    params = model.init(torch.Generator(device=device).manual_seed(1))
+    state = opt.init(params)
+    src = TokenSource(for_model(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=1))
+    batch = {k: torch.as_tensor(v, device=device)
+             for k, v in src.global_batch(0).items()}
+    params, state, _, _ = prog.step(params, state, batch, {})
+    step_kernels = device_kernels(lambda: prog.step(params, state, batch,
+                                                    {}))
+    with torch.enable_grad():
+        loss, _ = model.loss(params, batch)
+        grads = tree_unflatten(params, torch.autograd.grad(
+            loss, tree_leaves(params)))
+    grads = sync_duplicated_grads(grads, model.kv_duplication(), cfg.hd)
+    updates, new_state = opt.update(grads, state, params)
+    lp_batch = step_lp_batch(updates, grads, new_state, params)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_leaves = len(tree_leaves(params))
+    f32_leaves = sorted(k for k, p in model.blocks.items()
+                        if p.dtype == torch.float32)
+    del prog, model, params, state, grads, updates, new_state, loss
+    free_card()
+    check(lp_batch[1].shape[0] == n_leaves,
+          f"{arch}: {lp_batch[1].shape[0]} LPs for {n_leaves} leaves")
+    out = {"phase": "train", "arch": arch, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "dtype": "bfloat16", "steps": steps,
+           "parameters": n_params, "float32_leaves": f32_leaves,
+           "losses": losses, "lp_s1": s1s, "step_ms": [r[2] for r in rows],
+           "median_step_ms": median_ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (median_ms / 1e3),
+           "max_memory_allocated": peak, "run_seconds": run_s,
+           "launches": launches, "lp_problems": int(lp_batch[1].shape[0]),
+           "step_kernels": step_kernels,
+           "card_vs_cpu": card_vs_cpu(device, arch),
+           "seconds": time.perf_counter() - t0, "card": card}
+    emit(out)
+    return out, lp_batch
+
+
 # The serving phase: each architecture served at full width, then held
 # to the prefill oracle (full width, float32) and to the CPU (smoke).
 LM_ARCHS = (("qwen2-0.5b", 512), ("olmoe-1b-7b", 512),
-            ("paligemma-3b", 256), ("whisper-base", 512))
+            ("paligemma-3b", 256), ("whisper-base", 512),
+            ("mamba2-1.3b", 512), ("zamba2-2.7b", 512))
 LM_REQUESTS, LM_BATCH, LM_GEN = 16, 8, 32
 # tests/test_decode_equivalence.py's form: prefill, stream teacher-forced
 # steps, hold each step's logits against a prefill of the longer sequence
@@ -1297,6 +1402,33 @@ def real_err(got, ref, vocab: int) -> tuple:
             bool(np.array_equal(g[:, vocab:], r[:, vocab:])))
 
 
+def cache_parts(cfg, B: int, seq: int) -> dict:
+    """A grown bf16 serving cache's bytes by part, from the config alone:
+    the self-attention K/V of ``seq`` slots (with an encoder-decoder's
+    cross K/V) and what the real KV heads would need, the SSM state
+    (float32) and conv windows, which do not grow with the sequence, and
+    the positions."""
+    from repro_torch.models.common import head_layout
+    parts = {"kv": 0, "kv_real_heads": 0, "ssm_state": 0, "conv": 0,
+             "pos": 0, "kv_heads_stored": None, "kv_heads_real": None}
+    if cfg.family in ("ssm", "hybrid"):
+        parts["ssm_state"] = (cfg.n_layers * B * cfg.ssm_heads
+                              * cfg.ssm_state * cfg.ssm_head_dim * 4)
+        parts["conv"] = (cfg.n_layers * B * (cfg.ssm_conv - 1)
+                         * (cfg.d_inner + 2 * cfg.ssm_state) * 2)
+    if cfg.family != "ssm":
+        lay = head_layout(cfg, 1)
+        n = (cfg.n_layers // cfg.hybrid_period if cfg.family == "hybrid"
+             else cfg.n_layers)            # caches: one a segment
+        slots = seq + (cfg.enc_seq if cfg.family == "encdec" else 0)
+        parts["kv"] = 2 * n * B * cfg.hd * 2 * slots * lay.kv_total
+        parts["kv_real_heads"] = parts["kv"] * lay.n_kv // lay.kv_total
+        parts["pos"] = n * B * 4
+        parts["kv_heads_stored"] = lay.kv_total
+        parts["kv_heads_real"] = lay.n_kv
+    return parts
+
+
 def serve_arch(device, card: str, arch: str, prompt_len: int) -> dict:
     """(a) ``repro_torch.launch.serve.main`` at full width in bf16, read
     right after its run; then one decode step of a fresh server of the
@@ -1307,9 +1439,8 @@ def serve_arch(device, card: str, arch: str, prompt_len: int) -> dict:
     from repro_torch.configs import ARCHS
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.serve import main as serve_main
-    from repro_torch.launch.serve import pad_cache
+    from repro_torch.launch.serve import pad_cache, prefill_length
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
-    from repro_torch.models.common import head_layout
     cfg = ARCHS[arch]
     free_card()
     torch.cuda.reset_peak_memory_stats()
@@ -1329,15 +1460,12 @@ def serve_arch(device, card: str, arch: str, prompt_len: int) -> dict:
     check(all(((t >= 0) & (t < cfg.vocab)).all() for t in run.tokens),
           f"{arch}: a generated token is outside the real vocabulary")
     decode_ms = sorted(ms for b in run.decode_ms for ms in b)
-    lay = head_layout(cfg, 1)
     seq = prompt_len + LM_GEN + (cfg.n_prefix if cfg.family == "vlm" else 0)
-    per_slot = 2 * cfg.n_layers * LM_BATCH * cfg.hd * 2     # k and v, bf16
-    kv_bytes = per_slot * seq * lay.kv_total
-    if cfg.family == "encdec":
-        kv_bytes += per_slot * cfg.enc_seq * lay.kv_total
-    check(run.cache_bytes == kv_bytes + cfg.n_layers * LM_BATCH * 4,
-          f"{arch}: the cache holds {run.cache_bytes} bytes, not "
-          f"{kv_bytes} of K/V and the positions")
+    parts = cache_parts(cfg, LM_BATCH, seq)
+    kv_bytes = parts["kv"]
+    state_bytes = parts["ssm_state"] + parts["conv"]
+    check(run.cache_bytes == kv_bytes + state_bytes + parts["pos"],
+          f"{arch}: the cache holds {run.cache_bytes} bytes, not {parts}")
     out = {"arch": arch, "family": cfg.family, "batch": LM_BATCH,
            "prompt_len": prompt_len, "gen": LM_GEN,
            "requests": LM_REQUESTS, "dtype": cfg.dtype,
@@ -1348,9 +1476,13 @@ def serve_arch(device, card: str, arch: str, prompt_len: int) -> dict:
            "tokens": run.n_tokens, "seconds": run.seconds,
            "tokens_per_s": run.n_tokens / run.seconds,
            "max_memory_allocated": peak,
+           "cache_bytes": run.cache_bytes,
            "kv_cache_bytes": kv_bytes,
-           "kv_cache_bytes_real_heads": kv_bytes * lay.n_kv // lay.kv_total,
-           "kv_heads_stored": lay.kv_total, "kv_heads_real": lay.n_kv,
+           "kv_cache_bytes_real_heads": parts["kv_real_heads"],
+           "kv_heads_stored": parts["kv_heads_stored"],
+           "kv_heads_real": parts["kv_heads_real"],
+           "ssm_state_bytes": parts["ssm_state"],
+           "conv_cache_bytes": parts["conv"],
            "sample_row": run.tokens[0][0][:8].tolist()}
     del run
     free_card()
@@ -1364,7 +1496,7 @@ def serve_arch(device, card: str, arch: str, prompt_len: int) -> dict:
     _, batch = lm_inputs(cfg, np.random.default_rng([SEED, 7]), LM_BATCH,
                          prompt_len, device)
     logits, cache = pre.jit()(params, batch(prompt_len))
-    cur = cache["k"].shape[2]
+    cur = prefill_length(cache, prompt_len)
     cache = pad_cache(cache, LM_GEN)
     tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
     pos = torch.full((LM_BATCH,), cur, dtype=torch.int32, device=device)
@@ -1373,8 +1505,9 @@ def serve_arch(device, card: str, arch: str, prompt_len: int) -> dict:
     out["decode_step"] = device_kernels(lambda: dec.jit()(params, step,
                                                           cache))
     out["weight_bytes"] = weight_bytes
-    # a decode step reads every weight and the whole cache at least once
-    out["decode_bytes_bound_ms"] = (weight_bytes + kv_bytes) \
+    # a decode step reads every weight and the whole cache (K/V, SSM
+    # state and conv windows) at least once
+    out["decode_bytes_bound_ms"] = (weight_bytes + kv_bytes + state_bytes) \
         / PEAK_BYTES_S * 1e3
     del pre, dec, params, cache, logits
     free_card()
@@ -1388,7 +1521,7 @@ def decode_equivalence(device, arch: str) -> dict:
     import dataclasses
 
     from repro_torch.configs import ARCHS
-    from repro_torch.launch.serve import pad_cache
+    from repro_torch.launch.serve import pad_cache, prefill_length
     from repro_torch.models import MeshInfo, build_model
     cfg = dataclasses.replace(ARCHS[arch], dtype="float32")
     restore = float32_exact()
@@ -1398,7 +1531,7 @@ def decode_equivalence(device, arch: str) -> dict:
         toks, batch = lm_inputs(cfg, np.random.default_rng([SEED, 8]),
                                 EQ_BATCH, EQ_PREFILL + EQ_STEPS, device)
         logits, cache = model.prefill(params, batch(EQ_PREFILL))
-        cur = cache["k"].shape[2]
+        cur = prefill_length(cache, EQ_PREFILL)
         cache = pad_cache(cache, EQ_STEPS)
         stream = [logits]
         for t in range(EQ_STEPS - 1):
@@ -1439,7 +1572,7 @@ def lm_card_vs_cpu(device, arch: str) -> dict:
     import dataclasses
 
     from repro_torch.configs import ARCHS, smoke_config
-    from repro_torch.launch.serve import pad_cache
+    from repro_torch.launch.serve import pad_cache, prefill_length
     from repro_torch.models import (MeshInfo, build_model, params_from_numpy,
                                     params_to_numpy)
     cfg = dataclasses.replace(smoke_config(ARCHS[arch]), dtype="float32")
@@ -1455,7 +1588,7 @@ def lm_card_vs_cpu(device, arch: str) -> dict:
             toks, batch = lm_inputs(cfg, np.random.default_rng([SEED, 9]),
                                     2, 8 + LM_CPU_STEPS, dev)
             logits, cache = model.prefill(params, batch(8))
-            cur = cache["k"].shape[2]
+            cur = prefill_length(cache, 8)
             cache = pad_cache(cache, LM_CPU_STEPS)
             out = [logits.cpu()]
             for t in range(LM_CPU_STEPS):
@@ -1481,7 +1614,7 @@ def lm_card_vs_cpu(device, arch: str) -> dict:
 
 
 def phase_lm_serve(device, card: str) -> dict:
-    """LM serving for each family with attention: (a) the served run and
+    """LM serving for each family: (a) the served run and
     its decode step's kernels, (b) decode against the prefill oracle at
     full width, (c) card against CPU on the smoke config.  Launches no
     ``rgb_cuda`` (no LP is solved on this path)."""
@@ -1507,7 +1640,8 @@ def phase_lm_serve(device, card: str) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
-def phase_train_kernel(device, card: str, lp_batch, launches: int) -> dict:
+def phase_train_kernel(device, card: str, lp_batch, launches: int,
+                       path: str = "train") -> dict:
     """``rgb_cuda`` on the LP batch of one real training step, padded as
     the solver pads it (m to a lane, the batch to the tile with neutral
     problems), held against ``rgb_plain`` bit for bit and timed."""
@@ -1527,7 +1661,7 @@ def phase_train_kernel(device, card: str, lp_batch, launches: int) -> dict:
     mv = np.concatenate([np.full(nb, m, np.int32), np.zeros(pad, np.int32)])
     arrays = (A, b, c, mv)
     entry = hold_and_time(device, card, (arrays, arrays), B, LANE,
-                          "float32", tile, 0, "train", {}, M=M_BOX)
+                          "float32", tile, 0, path, {}, M=M_BOX)
     check(entry["bits_equal"],
           f"rgb_cuda differs from rgb_plain in bits on the step's LP "
           f"batch: {entry}")
@@ -1562,11 +1696,15 @@ def main() -> int:
         phase_tune(device, card)
         rpc = phase_rpc(default_devices()[:1], card)
         train, lp_batch = phase_train(device, card)
+        train_ssm, lp_batch_ssm = phase_train_ssm(device, card)
         phase_lm_serve(device, card)
         # Launches made from here on compare and time; the counts of the
         # main path have been read.
         entries.append(phase_train_kernel(device, card, lp_batch,
                                           train["launches"]))
+        entries.append(phase_train_kernel(device, card, lp_batch_ssm,
+                                          train_ssm["launches"],
+                                          path="train-mamba2"))
         entries += phase_serve_kernels(device, card, serve["exec_specs"])
         entries += phase_serve_kernels(device, card, rpc["exec_specs"],
                                        path="rpc")
@@ -1578,6 +1716,9 @@ def main() -> int:
         check(rpc["launches"] > 0, "the RPC path launched no kernel")
         check(train["launches"] == RESUME_STEPS,
               "the training path did not launch the kernel once a step")
+        check(train_ssm["launches"] == TRAIN_SSM_STEPS,
+              "the mamba2 training path did not launch the kernel once a "
+              "step")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

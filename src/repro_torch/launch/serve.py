@@ -16,13 +16,17 @@ takes a model, its parameters and the prompts, so weights made elsewhere
 
 Two things differ from the reference on purpose (ROADMAP C):
 
-* the cache's self-attention ``k``/``v`` grow by the length the prefill
-  gave them, and decode positions start there.  The reference grows every
-  cache axis equal to ``--prompt-len`` and starts at ``--prompt-len``, so
-  a VLM's cache (patch prefix + prompt) is never grown, each decode write
-  is clamped onto the last prompt slot, and RoPE sees positions short by
-  the prefix; an encoder-decoder's ``xk``/``xv`` (encoder length) would
-  be grown whenever ``--prompt-len`` equals it;
+* only the self-attention ``k``/``v`` grow, found by name (top level, or
+  the hybrid's ``attn``), by the length the prefill gave them, and decode
+  positions start there (:func:`prefill_length`).  The reference grows
+  every cache axis 2 equal to ``--prompt-len`` and starts at
+  ``--prompt-len``, so a VLM's cache (patch prefix + prompt) is never
+  grown, each decode write is clamped onto the last prompt slot, and
+  RoPE sees positions short by the prefix; an encoder-decoder's
+  ``xk``/``xv`` (encoder length) would be grown whenever ``--prompt-len``
+  equals it, and so would an SSM cache's head axis (``--prompt-len`` equal
+  to the heads) or its conv windows (``--prompt-len`` equal to
+  ``ssm_conv - 1``);
 * generated tokens stay on the device until a batch ends (the reference
   copies each step's token to the host); the tokens are the same.
 """
@@ -40,6 +44,7 @@ from repro_torch.configs import ARCHS, smoke_config
 from repro_torch.device import DeviceLike
 from repro_torch.launch import steps as steps_mod
 from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.tree import tree_leaves
 
 
 @dataclasses.dataclass
@@ -81,12 +86,26 @@ class _Marks:
         return (self.marks[b] - self.marks[a]) * 1e3
 
 
+def prefill_length(cache: dict, n_tokens: int) -> int:
+    """Where decode positions start after a prefill of ``n_tokens``
+    tokens that gave ``cache``: the self-attention cache's length (top
+    level, or the hybrid's ``attn``; a VLM's counts its patch prefix), or
+    ``n_tokens`` for an SSM, whose cache has no sequence axis (and which
+    reads no position)."""
+    kv = cache if "k" in cache else cache.get("attn")
+    return n_tokens if kv is None else int(kv["k"].shape[2])
+
+
 def pad_cache(cache: dict, n_new: int) -> dict:
     """Grow the self-attention ``k``/``v`` along their sequence axis by
-    ``n_new`` zero slots, after the length the prefill gave them; the
-    other entries (``pos``, the cross-attention ``xk``/``xv``) as they
-    are."""
+    ``n_new`` zero slots, after the length the prefill gave them; every
+    other entry (``pos``, the cross-attention ``xk``/``xv``, the SSM
+    ``state`` and ``conv_*`` windows) as it is."""
     out = dict(cache)
+    if "attn" in cache:
+        out["attn"] = pad_cache(cache["attn"], n_new)
+    if "k" not in cache:
+        return out
     for name in ("k", "v"):
         x = cache[name]
         grown = x.new_zeros(x.shape[:2] + (x.shape[2] + n_new,)
@@ -94,6 +113,11 @@ def pad_cache(cache: dict, n_new: int) -> dict:
         grown[:, :, :x.shape[2]] = x
         out[name] = grown
     return out
+
+
+def cache_bytes(cache) -> int:
+    """The bytes of every tensor in a (nested) cache."""
+    return sum(t.numel() * t.element_size() for t in tree_leaves(cache))
 
 
 def make_prompts(vocab: int, requests: int, batch: int, prompt_len: int,
@@ -116,7 +140,7 @@ def serve(model, params, prompts: List[np.ndarray], *, gen: int,
     marks = _Marks(dev)
     spans = []
     outs_all = []
-    cache_bytes = 0
+    n_bytes = 0
     t0 = time.time()
     for prompt in prompts:
         B = prompt.shape[0]
@@ -131,11 +155,10 @@ def serve(model, params, prompts: List[np.ndarray], *, gen: int,
         logits, cache = prefill(params, batch)
         b = marks.mark()
         spans.append(("prefill", a, b))
-        # the prefill's own length: prompt_len, or n_prefix + prompt_len
-        cur = cache["k"].shape[2]
+        # prompt_len, or n_prefix + prompt_len
+        cur = prefill_length(cache, prompt.shape[1])
         cache = pad_cache(cache, gen)
-        cache_bytes = sum(t.numel() * t.element_size()
-                          for t in cache.values())
+        n_bytes = cache_bytes(cache)
         tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
         outs = [tok]
         pos = torch.full((B,), cur, dtype=torch.int32, device=dev)
@@ -158,7 +181,7 @@ def serve(model, params, prompts: List[np.ndarray], *, gen: int,
                  for s in spans if s[0] == "decode"]
     return ServeRun(tokens=outs_all, prefill_ms=prefill_ms,
                     decode_ms=decode_ms, seconds=seconds,
-                    cache_bytes=cache_bytes)
+                    cache_bytes=n_bytes)
 
 
 def main(argv=None, *, device: DeviceLike = None) -> ServeRun:

@@ -1,11 +1,12 @@
-"""The attention-based model families of the JAX package, in PyTorch (one
-card): the decoder LM (dense, MoE, VLM) and the encoder-decoder."""
+"""The model families of the JAX package, in PyTorch (one card): the decoder
+LM (dense, MoE, VLM), the encoder-decoder, the Mamba2 LM and the hybrid."""
 from repro_torch.models.common import (HeadLayout, MeshInfo, ModelConfig,
                                        head_layout)
-from repro_torch.models.transformer import (DecoderLM, EncDecLM, build_model,
+from repro_torch.models.transformer import (DecoderLM, EncDecLM, HybridLM,
+                                            SSMLM, build_model,
                                             params_from_numpy,
                                             params_to_numpy)
 
 __all__ = ["HeadLayout", "MeshInfo", "ModelConfig", "head_layout",
-           "DecoderLM", "EncDecLM", "build_model", "params_from_numpy",
-           "params_to_numpy"]
+           "DecoderLM", "EncDecLM", "SSMLM", "HybridLM", "build_model",
+           "params_from_numpy", "params_to_numpy"]

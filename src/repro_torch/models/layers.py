@@ -1,9 +1,10 @@
-"""Model layers of the attention families, in PyTorch: the reference's math.
+"""Model layers of every family, in PyTorch: the reference's math.
 
-Counterpart of ``repro.models.layers`` for the dense, MoE, VLM and
-encoder-decoder families on one card, in training and in serving
-(``attn_layer`` in ``mode="prefill"|"decode"`` with its ``AttnCache``,
-``decode_attention``, ``lm_head_logits``).  The reference writes each
+Counterpart of ``repro.models.layers`` for the dense, MoE, VLM,
+encoder-decoder, SSM and hybrid families on one card, in training and in
+serving (``attn_layer`` and ``mamba2_layer`` in
+``mode="prefill"|"decode"`` with their ``AttnCache`` / ``SSMCache``,
+``decode_attention``, ``ssd_decode_step``, ``lm_head_logits``).  The reference writes each
 function to run inside ``shard_map`` with explicit collectives over the
 ``model`` axis; here the collective helpers are the identity at
 ``model_size == 1`` and raise for a larger model axis (multi-card training
@@ -11,8 +12,9 @@ is a later slice, ROADMAP A9g).  Every function is plain PyTorch, as the
 reference is plain ``jnp``: no kernel sits behind any of them
 (``flash_attention`` is the reference's chunked online softmax in torch
 ops, not ``scaled_dot_product_attention``; ``moe_layer`` is the
-reference's sort-based grouping in torch ops).  The Mamba2 layers are a
-later slice (ROADMAP A9e).
+reference's sort-based grouping in torch ops; ``ssd_chunked`` is the
+reference's chunked state-space-duality scan in torch ops, its loop over
+chunks a Python loop).
 
 Conventions (the reference's):
   d   = model width, B = batch, S = sequence
@@ -83,6 +85,17 @@ def rms_norm(x, scale, eps: float):
     dt = x.dtype
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(dt) * scale
+
+
+def rms_norm_sharded(x, scale, eps: float, mi: MeshInfo, full_width: int):
+    """RMSNorm over a width-sharded activation: the sum of squares is
+    reduced over the model axis and divided by the full width (one
+    shard here, so ``full_width`` is the width of ``x``)."""
+    dt = x.dtype
+    x32 = x.float()
+    ssq = psum_model(torch.sum(x32 * x32, dim=-1, keepdim=True), mi)
+    var = ssq / full_width
     return (x32 * torch.rsqrt(var + eps)).to(dt) * scale
 
 
@@ -450,6 +463,188 @@ def _load_balance_loss(probs, top_idx, E):
     frac_tokens = torch.mean(torch.sum(onehot, dim=1), dim=0)  # (E,)
     frac_probs = torch.mean(probs, dim=0)
     return E * torch.sum(frac_tokens * frac_probs) / k
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD) layer
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class SSMCache:
+    state: torch.Tensor   # (B, H, d_state, P) float32
+    conv_x: torch.Tensor  # (B, K-1, d_inner)
+    conv_B: torch.Tensor  # (B, K-1, N)
+    conv_C: torch.Tensor  # (B, K-1, N)
+
+
+def _causal_conv(x, w, cache=None):
+    """Depthwise causal conv.  x (B,S,C), w (K,C).  With a cache (B,K-1,C)
+    performs the streaming update (S==1) and returns (y, new_cache)."""
+    K = w.shape[0]
+    if cache is None:
+        pad = x.new_zeros((x.shape[0], K - 1, x.shape[2]))
+        xp = torch.cat([pad, x], dim=1)
+        y = sum(xp[:, i:i + x.shape[1], :] * w[i] for i in range(K))
+        return y, None
+    xp = torch.cat([cache, x], dim=1)  # (B, K-1+1, C)
+    y = sum(xp[:, i:i + 1, :] * w[i] for i in range(K))
+    return y, xp[:, 1:, :]
+
+
+def _segsum_decay(da):
+    """da (..., Q) per-step log-decays -> (..., Q, Q) lower-triangular
+    exp(cumsum_i - cumsum_j) factors (j <= i).
+
+    Masked to -inf BEFORE exponentiating: the j > i entries have a
+    positive difference that can overflow exp, and a mask applied after it
+    would give 0 * inf = NaN in the backward pass."""
+    cs = torch.cumsum(da, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    Q = da.shape[-1]
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=da.device))
+    diff = torch.where(tri, diff, -torch.inf)
+    # jnp.minimum: a tie (the diagonal) splits its gradient, as here
+    return torch.exp(torch.minimum(diff, diff.new_zeros(())))
+
+
+def ssd_chunked(xs, dt, A, Bc, Cc, chunk: int):
+    """Chunked state-space duality scan (Mamba2 alg. 1, float32 state).
+
+    xs (B,S,H,P), dt (B,S,H) [post-softplus], A (H,) [negative],
+    Bc/Cc (B,S,N).  Returns (y (B,S,H,P), final_state (B,H,N,P)).
+    ``S`` must be a multiple of ``min(chunk, S)``."""
+    B, S, H, P = xs.shape
+    N = Bc.shape[-1]
+    Q = min(chunk, S)
+    if S % Q:
+        raise ValueError(f"ssd_chunked: sequence {S} is not a multiple of "
+                         f"the chunk {Q}")
+    nc = S // Q
+    xs_ = xs.reshape(B, nc, Q, H, P).float()
+    dt_ = dt.reshape(B, nc, Q, H)
+    Bc_ = Bc.reshape(B, nc, Q, N).float()
+    Cc_ = Cc.reshape(B, nc, Q, N).float()
+    dt_h = dt_.movedim(-1, 2).float()  # (B, nc, H, Q)
+
+    da_h = (dt_ * A[None, None, None, :]).float().movedim(-1, 2)
+    Lmat = _segsum_decay(da_h)         # (B, nc, H, Q, Q)
+    cs = torch.cumsum(da_h, dim=-1)    # (B, nc, H, Q)
+    total = cs[..., -1]                # (B, nc, H)
+
+    # Intra-chunk (quadratic within the chunk, like a masked attention):
+    CB = torch.einsum("bcin,bcjn->bcij", Cc_, Bc_)
+    Mdt = CB[:, :, None] * Lmat * dt_h[..., None, :]
+    y_intra = torch.einsum("bchij,bcjhp->bcihp", Mdt, xs_)
+
+    # Chunk state contribution: sum_j exp(cs_last - cs_j) dt_j B_j x_j^T
+    w = torch.exp(total[..., None] - cs) * dt_h           # (B, nc, H, Q)
+    Sc = torch.einsum("bcjn,bcjhp->bchnp", Bc_,
+                      xs_ * w.movedim(2, 3)[..., None])
+
+    decay_chunk = torch.exp(total)     # (B, nc, H)
+    state = xs_.new_zeros((B, H, N, P))
+    y_inter = []
+    for c in range(nc):
+        # the inter-chunk output from the incoming state
+        y_in = torch.einsum("bin,bhnp->bihp", Cc_[:, c], state)
+        y_inter.append(y_in * torch.exp(cs[:, c].movedim(1, -1))[..., None])
+        state = state * decay_chunk[:, c][..., None, None] + Sc[:, c]
+    y = y_intra + torch.stack(y_inter, dim=1)
+    return y.reshape(B, S, H, P).to(xs.dtype), state
+
+
+def ssd_decode_step(state, x_t, dt_t, A, B_t, C_t):
+    """Single-token SSD recurrence, updating ``state`` (B,H,N,P) float32
+    **in place**; x_t (B,H,P), dt_t (B,H), B_t/C_t (B,N).  Returns
+    ``(state, y (B,H,P))``."""
+    dec = torch.exp((dt_t * A[None, :]).float())  # (B, H)
+    upd = torch.einsum("bn,bhp->bhnp", B_t.float(),
+                       (x_t * dt_t[..., None]).float())
+    state.mul_(dec[..., None, None]).add_(upd)
+    y = torch.einsum("bn,bhnp->bhp", C_t.float(), state)
+    return state, y.to(x_t.dtype)
+
+
+def _softplus(x):
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` (``F.softplus`` returns
+    ``x`` itself above its threshold of 20)."""
+    return torch.logaddexp(x, x.new_zeros(()))
+
+
+def mamba2_layer(
+    p: Params,
+    x,
+    mi: MeshInfo,
+    cfg: ModelConfig,
+    *,
+    mode: str = "train",
+    cache: Optional[SSMCache] = None,
+):
+    """Mamba2 block.
+
+    p: w_z/w_x (d, d_inner), w_B/w_C (d, N), w_dt (d, H), dt_bias (H,),
+       A_log (H,), D (H,), conv_x (K, d_inner), conv_B/conv_C (K, N),
+       norm (d_inner,), w_out (d_inner, d).
+    Returns ``(out (B,S,d), new_cache)``: ``None`` in train mode, the
+    final state and the last ``K-1`` pre-conv inputs in prefill, and in
+    decode ``cache`` itself, its state and conv windows updated **in
+    place** (the reference returns a new cache and its serving step
+    donates the old one)."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mamba2_layer mode={mode!r}")
+    B, S, d = x.shape
+    P = cfg.ssm_head_dim
+    N = cfg.ssm_state
+    di_l = p["w_x"].shape[1]
+    H_l = di_l // P
+
+    z = x @ p["w_z"]
+    xs = x @ p["w_x"]
+    Bc = x @ p["w_B"]
+    Cc = x @ p["w_C"]
+    dt = _softplus((x @ p["w_dt"]).float() + p["dt_bias"].float())
+    A = -torch.exp(p["A_log"].float())  # (H_l,)
+
+    if mode == "decode":
+        if cache is None or S != 1:
+            raise ValueError("mamba2_layer decode takes one token a row "
+                             "and a cache")
+        xs, new_cx = _causal_conv(xs, p["conv_x"], cache.conv_x)
+        Bc, new_cB = _causal_conv(Bc, p["conv_B"], cache.conv_B)
+        Cc, new_cC = _causal_conv(Cc, p["conv_C"], cache.conv_C)
+        cache.conv_x.copy_(new_cx)
+        cache.conv_B.copy_(new_cB)
+        cache.conv_C.copy_(new_cC)
+        xs, Bc, Cc = silu(xs), silu(Bc), silu(Cc)
+        x_t = xs.reshape(B, H_l, P)
+        _, y = ssd_decode_step(cache.state, x_t, dt.reshape(B, H_l), A,
+                               Bc.reshape(B, N), Cc.reshape(B, N))
+        y = y + x_t * p["D"][None, :, None]
+        y = y.reshape(B, 1, di_l)
+        new_cache = cache
+    else:
+        pre = (xs, Bc, Cc)
+        xs, _ = _causal_conv(xs, p["conv_x"])
+        Bc, _ = _causal_conv(Bc, p["conv_B"])
+        Cc, _ = _causal_conv(Cc, p["conv_C"])
+        xs, Bc, Cc = silu(xs), silu(Bc), silu(Cc)
+        xs_h = xs.reshape(B, S, H_l, P)
+        y, state = ssd_chunked(xs_h, dt, A, Bc, Cc, cfg.ssm_chunk)
+        y = y + xs_h * p["D"][None, None, :, None]
+        y = y.reshape(B, S, di_l)
+        new_cache = None
+        if mode == "prefill":
+            # carry the last K-1 pre-conv inputs for streaming decode
+            k1 = cfg.ssm_conv - 1
+            new_cache = SSMCache(state=state, conv_x=pre[0][:, -k1:, :],
+                                 conv_B=pre[1][:, -k1:, :],
+                                 conv_C=pre[2][:, -k1:, :])
+
+    # gated RMSNorm over the inner width, then the output projection
+    y = y * silu(z)
+    y = rms_norm_sharded(y, p["norm"], cfg.norm_eps, mi, cfg.d_inner)
+    out = psum_model(y @ p["w_out"], mi)
+    return out, new_cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
-"""The attention-based model families as ``nn.Module``s, in the reference's
-layout: the decoder LM (``dense``, ``moe``, ``vlm``) and the
-encoder-decoder (``encdec``).
+"""The model families as ``nn.Module``s, in the reference's layout: the
+decoder LM (``dense``, ``moe``, ``vlm``), the encoder-decoder
+(``encdec``), the Mamba2 LM (``ssm``) and the hybrid (``hybrid``: Mamba2
+layers and one shared attention block).
 
 Counterpart of ``repro.models.transformer`` on one card.  Each model holds
 one ``nn.Parameter`` per leaf of the reference's parameter tree, under the
@@ -9,7 +10,12 @@ reference's names and in its **stacked** layout: ``DecoderLM`` has
 ln2,w_gate,w_up,w_down,w_router,dw_gate,dw_up,dw_down}`` (as the config
 asks) and, for the VLM, ``vis_proj``/``vis_out``; ``EncDecLM`` has
 ``enc/...`` and ``dec/...`` stacks (the decoder's cross-attention under
-``x_``) with ``enc_norm``.  Each block leaf is shaped ``(n_layers, ...)``.
+``x_``) with ``enc_norm``; ``SSMLM`` has ``emb``, ``lm_head``,
+``final_norm`` and ``blocks/{ln,w_z,w_x,w_B,w_C,w_dt,dt_bias,A_log,D,
+conv_x,conv_B,conv_C,norm,w_out}``, and ``HybridLM`` adds the unstacked
+``shared/...`` block.  Each block leaf is shaped ``(n_layers, ...)``;
+``A_log`` and ``dt_bias`` are float32 whatever the model's dtype, as in
+the reference.
 The stacks are not split into per-layer modules because the LP
 trust-region clip (``optim.lp_clip``) poses one LP per leaf: another split
 would change the LP batch and its answer.
@@ -25,16 +31,15 @@ The layer scan is a loop over layer slices (``unbind`` of each stacked
 leaf, so the backward stacks the per-layer gradients once), each training
 block under ``torch.utils.checkpoint`` (non-reentrant) when ``cfg.remat``.
 ``prefill`` and ``decode`` run without autograd; ``decode`` writes each
-new token's K/V into the cache it is given, **in place** (the reference
-returns a new cache and its serving step donates the old one).
-Weights cross between the packages as numpy: :func:`params_from_numpy`
-loads the reference's ``model.init(key)`` tree, :func:`params_to_numpy`
-gives the port's parameters back in that tree.  The ``ssm`` and
-``hybrid`` families are a later slice (ROADMAP A9e).
+new token's K/V, and the SSM state and conv windows, into the cache it is
+given, **in place** (the reference returns a new cache and its serving
+step donates the old one).  Weights cross between the packages as numpy:
+:func:`params_from_numpy` loads the reference's ``model.init(key)`` tree,
+:func:`params_to_numpy` gives the port's parameters back in that tree.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -49,12 +54,6 @@ from repro_torch.models.common import (HeadLayout, MeshInfo, ModelConfig,
 from repro_torch.tree import copy_into_, flatten_with_paths
 
 Params = Dict[str, Any]
-
-# Where each family not ported yet is queued.
-_LATER = {
-    "ssm": "ROADMAP A9e (SSM/hybrid)",
-    "hybrid": "ROADMAP A9e (SSM/hybrid)",
-}
 
 
 def _dt(cfg: ModelConfig) -> torch.dtype:
@@ -148,12 +147,17 @@ class BaseModel(nn.Module):
         self.fsdp_size = mi.data_size if cfg.fsdp else 1
         self.device = as_device(device)
 
-    def _param(self, shape) -> nn.Parameter:
-        return nn.Parameter(torch.empty(shape, dtype=_dt(self.cfg),
+    def _param(self, shape, dtype=None) -> nn.Parameter:
+        return nn.Parameter(torch.empty(shape, dtype=dtype or _dt(self.cfg),
                                         device=self.device))
 
-    def _stack(self, shapes: Dict[str, tuple]) -> nn.ParameterDict:
-        return nn.ParameterDict({k: self._param(s)
+    def _stack(self, shapes: Dict[str, tuple],
+               dtypes: Optional[Dict[str, torch.dtype]] = None
+               ) -> nn.ParameterDict:
+        """One parameter a leaf, of the model's dtype unless ``dtypes``
+        names the leaf."""
+        dtypes = dtypes or {}
+        return nn.ParameterDict({k: self._param(s, dtypes.get(k))
                                  for k, s in shapes.items()})
 
     def param_tree(self) -> Params:
@@ -690,19 +694,305 @@ class EncDecLM(BaseModel):
                 "xk": zeros(cfg.enc_seq), "xv": zeros(cfg.enc_seq)}
 
 
+# ---------------------------------------------------------------------------
+# Mamba2 SSM LM
+# ---------------------------------------------------------------------------
+
+_SSM_CACHE = ("state", "conv_x", "conv_B", "conv_C")
+# leaves the reference keeps in float32 whatever the model's dtype: the
+# decays are exp of them, and a bfloat16 A_log would move every decay
+_F32_LEAVES = {"A_log": torch.float32, "dt_bias": torch.float32}
+
+
+class SSMLM(BaseModel):
+    """Mamba2 LM: the embedding, ``n_layers`` pre-norm Mamba2 blocks, the
+    final norm and an untied head; no attention and no positions."""
+
+    def __init__(self, cfg: ModelConfig, mi: MeshInfo,
+                 device: DeviceLike = None):
+        super().__init__(cfg, mi, device)
+        if cfg.ssm_heads % self.tp:
+            raise ValueError(f"{cfg.name}: ssm heads % tp != 0")
+        d = cfg.d_model
+        self.emb = self._param((self.v_pad, d))
+        self.lm_head = self._param((self.v_pad, d))
+        self.final_norm = self._param((d,))
+        self.blocks = self._stack(self._block_shapes(), _F32_LEAVES)
+
+    def _block_shapes(self):
+        cfg, Lr = self.cfg, self.cfg.n_layers
+        d, di, N, H, K = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                          cfg.ssm_heads, cfg.ssm_conv)
+        return {
+            "ln": (Lr, d),
+            "w_z": (Lr, d, di), "w_x": (Lr, d, di),
+            "w_B": (Lr, d, N), "w_C": (Lr, d, N),
+            "w_dt": (Lr, d, H), "dt_bias": (Lr, H),
+            "A_log": (Lr, H), "D": (Lr, H),
+            "conv_x": (Lr, K, di), "conv_B": (Lr, K, N), "conv_C": (Lr, K, N),
+            "norm": (Lr, di), "w_out": (Lr, di, d),
+        }
+
+    def param_tree(self) -> Params:
+        return {"emb": self.emb, "lm_head": self.lm_head,
+                "final_norm": self.final_norm,
+                "blocks": dict(self.blocks.items())}
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> Params:
+        """Fill the parameters in place from ``generator``: the
+        reference's distributions and constants (``A_log = log(linspace(1,
+        16, H))``, ``dt_bias = 0.5``, ``D = 1``, ``w_out`` at ``0.02 /
+        sqrt(2 L)``); returns :meth:`param_tree`."""
+        cfg, g = self.cfg, generator
+        dt, dev = _dt(cfg), self.device
+        blk = self.blocks
+        for name, shape in self._block_shapes().items():
+            if name in ("ln", "norm", "D"):
+                blk[name].fill_(1)
+            elif name == "A_log":
+                # computed in float64 and rounded once (XLA's float32
+                # linspace and log are within a few ulps of this)
+                a = torch.linspace(1.0, 16.0, cfg.ssm_heads,
+                                   dtype=torch.float64, device=dev)
+                blk[name].copy_(torch.log(a).expand(shape))
+            elif name == "dt_bias":
+                blk[name].fill_(0.5)
+            elif name == "w_out":
+                _put(blk, name, _dense_init(
+                    g, shape, dt, dev, 0.02 / (2 * cfg.n_layers) ** 0.5))
+            else:
+                _put(blk, name, _dense_init(g, shape, dt, dev))
+        self.emb.copy_(_dense_init(g, (self.v_pad, cfg.d_model), dt, dev))
+        self.lm_head.copy_(_dense_init(g, (self.v_pad, cfg.d_model), dt,
+                                       dev))
+        self.final_norm.fill_(1)
+        return self.param_tree()
+
+    def kv_duplication(self):
+        return {}
+
+    # -- forward ------------------------------------------------------------
+    def _mamba_block(self, h, names, *leaves, mode="train", cache=None):
+        cfg = self.cfg
+        p = dict(zip(names, leaves))
+        y, new_cache = L.mamba2_layer(
+            p, L.rms_norm(h, p["ln"], cfg.norm_eps), self.mi, cfg,
+            mode=mode, cache=cache)
+        return h + y, new_cache
+
+    def _mamba_layers(self, h, names, layers, *, mode, caches, new):
+        """The Mamba2 blocks ``layers`` (``(index, leaves)`` pairs) in
+        turn.  ``caches``: the stacked SSM cache, written in place
+        (decode); a prefill's per-layer caches are appended to ``new``."""
+        for i, leaves in layers:
+            cache = (L.SSMCache(**{k: caches[k][i] for k in _SSM_CACHE})
+                     if caches is not None else None)
+            if self._remat(mode):
+                h, c = checkpoint(self._mamba_block, h, names, *leaves,
+                                  use_reentrant=False, mode=mode)
+            else:
+                h, c = self._mamba_block(h, names, *leaves, mode=mode,
+                                         cache=cache)
+            if mode == "prefill":
+                new.append(c)
+        return h
+
+    def _trunk(self, params, h, *, mode, caches=None, positions=None):
+        """The block stack.  Returns ``(h, new_caches)``: the stacked
+        prefill cache, ``caches`` updated in place (decode), or ``None``
+        (train).  ``positions`` is unused: no block has RoPE."""
+        cfg = self.cfg
+        names, layers = _layer_slices(params["blocks"], cfg.n_layers)
+        new = []
+        h = self._mamba_layers(h, names, enumerate(layers), mode=mode,
+                               caches=caches, new=new)
+        h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+        if caches is not None:
+            return h, caches
+        return h, (_stack_caches([vars(c) for c in new], _SSM_CACHE)
+                   if new else None)
+
+    def loss(self, params, batch):
+        """``(loss, {"ce", "tokens"})`` for ``{"tokens", "labels"}``."""
+        h = L.embed_lookup(params["emb"], batch["tokens"], self.mi)
+        h, _ = self._trunk(params, h, mode="train")
+        loss, n = L.lm_head_loss(h, params["lm_head"], batch["labels"],
+                                 self.mi, vocab_real=self.cfg.vocab)
+        return loss, {"ce": loss, "tokens": n}
+
+    @torch.no_grad()
+    def prefill(self, params, batch):
+        """``(logits (B, V_pad) of the last position, cache)``; the SSM
+        cache is ``{"state": (L, B, H, N, P) float32, "conv_x", "conv_B",
+        "conv_C": (L, B, K-1, ...)}``: nothing in it grows with the
+        sequence.  The prompt's length must be a multiple of
+        ``min(ssm_chunk, length)``."""
+        h = L.embed_lookup(params["emb"], batch["tokens"], self.mi)
+        h, caches = self._trunk(params, h, mode="prefill")
+        logits = L.lm_head_logits(h[:, -1:], params["lm_head"], self.mi,
+                                  vocab_real=self.cfg.vocab)
+        return logits[:, 0], caches
+
+    @torch.no_grad()
+    def decode(self, params, batch, caches):
+        """One token a row: ``batch`` ``{"token": (B, 1)}`` (a ``"pos"``
+        is ignored, as the reference ignores it).  Writes into ``caches``
+        in place and returns ``(logits (B, V_pad), caches)``."""
+        return self._decode(params, batch["token"], caches, None)
+
+    def _decode(self, params, token, caches, positions):
+        h = L.embed_lookup(params["emb"], token, self.mi)
+        h, caches = self._trunk(params, h, mode="decode", caches=caches,
+                                positions=positions)
+        logits = L.lm_head_logits(h, params["lm_head"], self.mi,
+                                  vocab_real=self.cfg.vocab)
+        return logits[:, 0], caches
+
+    def init_cache(self, B: int, s_max: int):
+        cfg, dev = self.cfg, self.device
+        dt, Lr, k1 = _dt(cfg), cfg.n_layers, cfg.ssm_conv - 1
+        H, N, P, di = (cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim,
+                       cfg.d_inner)
+        return {
+            "state": torch.zeros((Lr, B, H, N, P), dtype=torch.float32,
+                                 device=dev),
+            "conv_x": torch.zeros((Lr, B, k1, di), dtype=dt, device=dev),
+            "conv_B": torch.zeros((Lr, B, k1, N), dtype=dt, device=dev),
+            "conv_C": torch.zeros((Lr, B, k1, N), dtype=dt, device=dev),
+        }
+
+
+# ---------------------------------------------------------------------------
+# Hybrid (zamba2): Mamba2 stack + one shared attention block every k layers
+# ---------------------------------------------------------------------------
+
+class HybridLM(SSMLM):
+    """The Mamba2 stack cut into ``n_seg = n_layers / hybrid_period``
+    segments, each followed by the one shared attention + GLU-MLP block
+    (its parameters under ``shared/``, applied ``n_seg`` times)."""
+
+    def __init__(self, cfg: ModelConfig, mi: MeshInfo,
+                 device: DeviceLike = None):
+        super().__init__(cfg, mi, device)
+        if cfg.n_layers % cfg.hybrid_period:
+            raise ValueError("n_layers must divide by hybrid_period")
+        self.n_seg = cfg.n_layers // cfg.hybrid_period
+        self.lay = head_layout(cfg, self.tp)
+        self.shared = self._stack(self._shared_shapes())
+
+    def _shared_shapes(self):
+        cfg = self.cfg
+        d, f = cfg.d_model, cfg.d_ff
+        sh = {k: v[1:] for k, v in
+              attn_param_shapes(cfg, self.lay, 1).items()}  # unstacked
+        sh.update({"ln1": (d,), "ln2": (d,), "w_gate": (d, f),
+                   "w_up": (d, f), "w_down": (f, d)})
+        return sh
+
+    def param_tree(self) -> Params:
+        tree = super().param_tree()
+        tree["shared"] = dict(self.shared.items())
+        return tree
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> Params:
+        """:meth:`SSMLM.init`, then the shared block: ``wo`` and
+        ``w_down`` at ``0.02 / sqrt(2 n_seg)``."""
+        super().init(generator)
+        cfg, g = self.cfg, generator
+        dt, dev = _dt(cfg), self.device
+        d, f = cfg.d_model, cfg.d_ff
+        scale = 0.02 / (2 * self.n_seg) ** 0.5
+        sh = self.shared
+        for k, v in init_attn_params(g, cfg, self.lay, 1, scale,
+                                     dev).items():
+            _put(sh, k, v[0])
+        sh["ln1"].fill_(1)
+        sh["ln2"].fill_(1)
+        _put(sh, "w_gate", _dense_init(g, (d, f), dt, dev))
+        _put(sh, "w_up", _dense_init(g, (d, f), dt, dev))
+        _put(sh, "w_down", _dense_init(g, (f, d), dt, dev, scale))
+        return self.param_tree()
+
+    def kv_duplication(self):
+        return {f"shared/{k}": v
+                for k, v in kv_duplication(self.cfg, self.lay).items()}
+
+    def _shared_block(self, params, h, *, mode, positions, cache):
+        cfg, mi = self.cfg, self.mi
+        p = params["shared"]
+        a, new_cache = L.attn_layer(
+            p, L.rms_norm(h, p["ln1"], cfg.norm_eps), mi, self.lay, cfg,
+            mode=mode, mask_mode="causal", positions=positions, cache=cache)
+        h = h + a
+        h = h + L.mlp_glu(p, L.rms_norm(h, p["ln2"], cfg.norm_eps), mi)
+        return h, new_cache
+
+    def _trunk(self, params, h, *, mode, caches=None, positions=None):
+        """As :meth:`SSMLM._trunk`; the cache is ``{"ssm": the SSM cache,
+        "attn": {"k", "v": (n_seg, B, S, kv_total, hd), "pos": (n_seg,
+        B)}}``, one attention cache a segment."""
+        cfg = self.cfg
+        per = cfg.hybrid_period
+        names, layers = _layer_slices(params["blocks"], cfg.n_layers)
+        if positions is None:
+            B, S = h.shape[0], h.shape[1]
+            positions = torch.arange(S, device=h.device)[None].expand(B, S)
+        ssm_c = attn_c = None
+        if caches is not None:
+            ssm_c, attn_c = caches["ssm"], caches["attn"]
+        new_ssm, new_attn = [], []
+        for s in range(self.n_seg):
+            seg = range(s * per, (s + 1) * per)
+            h = self._mamba_layers(h, names, [(i, layers[i]) for i in seg],
+                                   mode=mode, caches=ssm_c, new=new_ssm)
+            cache = (L.AttnCache(k=attn_c["k"][s], v=attn_c["v"][s],
+                                 pos=attn_c["pos"][s])
+                     if attn_c is not None else None)
+            h, c = self._shared_block(params, h, mode=mode,
+                                      positions=positions, cache=cache)
+            if c is not None:
+                new_attn.append({"k": c.k, "v": c.v, "pos": c.pos})
+        h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+        if caches is not None:
+            attn_c["pos"].copy_(torch.stack([c["pos"] for c in new_attn]))
+            return h, caches
+        if mode == "prefill":
+            return h, {"ssm": _stack_caches([vars(c) for c in new_ssm],
+                                            _SSM_CACHE),
+                       "attn": _stack_caches(new_attn)}
+        return h, None
+
+    @torch.no_grad()
+    def decode(self, params, batch, caches):
+        """One token a row: ``batch`` ``{"token": (B, 1), "pos": (B,)}``
+        (``pos`` the shared attention's RoPE position and cache slot).
+        Writes into ``caches`` in place."""
+        return self._decode(params, batch["token"], caches,
+                            batch["pos"][:, None])
+
+    def init_cache(self, B: int, s_max: int):
+        cfg, lay, dev = self.cfg, self.lay, self.device
+        kv = (self.n_seg, B, s_max, lay.kv_total, cfg.hd)
+        return {"ssm": super().init_cache(B, s_max), "attn": {
+            "k": torch.zeros(kv, dtype=_dt(cfg), device=dev),
+            "v": torch.zeros(kv, dtype=_dt(cfg), device=dev),
+            "pos": torch.zeros((self.n_seg, B), dtype=torch.int32,
+                               device=dev)}}
+
+
 def build_model(cfg: ModelConfig, mi: MeshInfo,
                 device: DeviceLike = None) -> BaseModel:
-    """The model for ``cfg`` on ``device`` (default: the card).  The
-    ``ssm`` and ``hybrid`` families raise ``NotImplementedError`` naming
-    the ROADMAP item that ports them."""
-    if cfg.family in _LATER:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            f"({_LATER[cfg.family]})")
+    """The model for ``cfg`` on ``device`` (default: the card)."""
     if cfg.family in ("dense", "moe", "vlm"):
         return DecoderLM(cfg, mi, device)
     if cfg.family == "encdec":
         return EncDecLM(cfg, mi, device)
+    if cfg.family == "ssm":
+        return SSMLM(cfg, mi, device)
+    if cfg.family == "hybrid":
+        return HybridLM(cfg, mi, device)
     raise ValueError(cfg.family)
 
 

@@ -2,8 +2,8 @@
 its plain PyTorch version on the same tensors, and the main paths on the card
 (solver, scheduler, pdhg, the tuner's fence, one RPC round trip, a full-width
 LP-clipped training step, train steps card against CPU, a bf16 checkpoint
-round trip, the MoE layer and a decode step card against CPU, the serving
-entry point on the card).
+round trip, the MoE layer, the SSD scan and a decode step of every family
+card against CPU, the serving entry point on the card).
 
 Run them on a machine with a Hopper card and ``nvcc``::
 
@@ -513,16 +513,19 @@ def test_moe_layer_on_the_card_matches_the_cpu(card):
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "olmoe-1b-7b",
-                                  "paligemma-3b", "whisper-base"])
+                                  "paligemma-3b", "whisper-base",
+                                  "mamba2-1.3b", "zamba2-2.7b"])
 def test_decode_step_on_the_card_matches_the_cpu(card, arch):
     """The smoke config in float32: prefill and one decode step on the
     card and on the CPU from the same weights, TF32 off; logits within
-    1e-5 of the largest |logit|, the cache written in place on both."""
+    1e-5 of the largest |logit|, the cache written in place on both and
+    every cache leaf within 1e-5."""
     import dataclasses
     from repro_torch.configs import ARCHS, smoke_config
-    from repro_torch.launch.serve import pad_cache
+    from repro_torch.launch.serve import pad_cache, prefill_length
     from repro_torch.models import (MeshInfo, build_model,
                                     params_from_numpy, params_to_numpy)
+    from repro_torch.tree import flatten_with_paths
     cfg = dataclasses.replace(smoke_config(ARCHS[arch]), dtype="float32")
     rng = np.random.default_rng(1)
     toks = rng.integers(0, cfg.vocab, (2, 9)).astype(np.int32)
@@ -546,16 +549,18 @@ def test_decode_step_on_the_card_matches_the_cpu(card, arch):
                                              device=dev)
                           for k, v in extra.items()})
             logits, cache = model.prefill(params, batch)
-            cur = cache["k"].shape[2]
+            cur = prefill_length(cache, 8)
             cache = pad_cache(cache, 2)
-            k_before = cache["k"]
+            before = flatten_with_paths(cache)
             dec, cache = model.decode(
                 params, {"token": torch.as_tensor(toks[:, 8:], device=dev),
                          "pos": torch.full((2,), cur, dtype=torch.int32,
                                            device=dev)}, cache)
-            assert cache["k"] is k_before
+            after = flatten_with_paths(cache)
+            assert all(after[k] is t for k, t in before.items())
             out[dev.type] = (logits.cpu().numpy(), dec.cpu().numpy(),
-                             cache["k"].cpu().numpy())
+                             {k: t.cpu().float().numpy()
+                              for k, t in after.items()})
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
     v = cfg.vocab
@@ -564,8 +569,39 @@ def test_decode_step_on_the_card_matches_the_cpu(card, arch):
         assert np.abs(g - c).max() <= 1e-5 * np.abs(c).max()
         np.testing.assert_array_equal(out["cpu"][i][:, v:],
                                       out["cuda"][i][:, v:])
-    np.testing.assert_allclose(out["cuda"][2], out["cpu"][2], rtol=1e-5,
-                               atol=1e-5)
+    for k, c in out["cpu"][2].items():
+        np.testing.assert_allclose(out["cuda"][2][k], c, rtol=1e-5,
+                                   atol=1e-5, err_msg=k)
+
+
+def test_ssd_chunked_on_the_card_matches_the_cpu(card):
+    """The chunked SSD scan in float32 at mamba2-1.3b's head shape (64
+    heads of 64, state 128, two chunks of 256), TF32 off: ``y`` and the
+    final state within 5e-5 of their largest entry (measured on an H100:
+    ``y`` 1.05e-5; its sums of 256 x 128 products run in another order on
+    the card, and cancel)."""
+    from repro_torch.models import layers as L
+    rng = np.random.default_rng(2)
+    B, S, H, P, N = 2, 512, 64, 64, 128
+    xs = rng.standard_normal((B, S, H, P)) * 0.5
+    dt = np.logaddexp(rng.standard_normal((B, S, H)) - 2.0, 0)
+    A = -np.linspace(1.0, 16.0, H)
+    Bc = rng.standard_normal((B, S, N)) * 0.1
+    Cc = rng.standard_normal((B, S, N)) * 0.1
+    old = _no_tf32()
+    out = {}
+    try:
+        for dev in (torch.device("cpu"), card):
+            y, st = L.ssd_chunked(*(torch.as_tensor(a, dtype=torch.float32,
+                                                    device=dev)
+                                    for a in (xs, dt, A, Bc, Cc)), 256)
+            out[dev.type] = (y.cpu().numpy(), st.cpu().numpy())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    errs = [float(np.abs(g - c).max() / np.abs(c).max())
+            for c, g in zip(out["cpu"], out["cuda"])]
+    assert all(np.isfinite(g).all() for g in out["cuda"])
+    assert max(errs) <= 5e-5, errs
 
 
 def test_serve_main_on_the_card_whisper_smoke(card, capsys):

@@ -465,12 +465,19 @@ def test_train_step_no_nans(arch):
 @pytest.mark.parametrize("arch", sorted(a for a, c in ARCHS.items()
                                         if c.family != "dense"))
 def test_families_not_ported_yet_raise_naming_their_roadmap_item(arch):
-    """``ssm`` and ``hybrid`` are still to come (ROADMAP A9e); the other
-    families build since LM serving (``tests/test_torch_lm_serve.py``)."""
-    cfg = smoke_config(ARCHS[arch])
-    if cfg.family in ("ssm", "hybrid"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9e"):
-            build_model(cfg, MI1, device="cpu")
-    else:
-        model = build_model(cfg, MI1, device="cpu")
+    """Every family is ported now (the name is kept from when ``ssm`` and
+    ``hybrid`` raised naming ROADMAP A9e): each non-dense family builds,
+    on its smoke config and at full width, with the reference's parameter
+    shapes, dtypes and duplicated-KV map."""
+    for cfg, rcfg in ((smoke_config(ARCHS[arch]),
+                       r_smoke_config(R_ARCHS[arch])),
+                      (ARCHS[arch], R_ARCHS[arch])):
+        rmodel = r_build_model(rcfg, RMI1)
+        rp = flatten_with_paths(jax.eval_shape(
+            lambda: rmodel.init(jax.random.key(0))))
+        model = build_model(cfg, MI1, device="meta")
         assert model.cfg.family == cfg.family
+        assert {k: (tuple(v.shape), str(v.dtype).removeprefix("torch."))
+                for k, v in flatten_with_paths(model.param_tree()).items()} \
+            == {k: (tuple(v.shape), str(v.dtype)) for k, v in rp.items()}
+        assert model.kv_duplication() == rmodel.kv_duplication()
