@@ -9,9 +9,10 @@ and the CUDA toolkit (``nvcc``)::
 It drives the port's main paths (``repro_torch`` only) on the card at sizes
 users would call real — the paper's figure-3 batch of 16384 problems at the
 README's example width of 256 constraints, Qwen2-0.5B and Mamba2-1.3B
-trained at full width with the LP solver inside their optimizer, and six
-language models served at full width — and prints one JSON object per
-line:
+trained at full width with the LP solver inside their optimizer, six
+language models served at full width, the solve service's own benchmark in
+all its modes and the paper's crowd simulation at 16,384 agents — and
+prints one JSON object per line:
 
 1. ``probe``   PyTorch / CUDA versions, device name and power limit, nvcc.
 2. ``build``   builds ``src/repro_torch/kernels/csrc/batch_lp.cu`` for
@@ -30,7 +31,7 @@ line:
    is done at every shape, tile and chunk the serving and RPC runs really
    launched the kernel with (read from the scheduler's executable cache).
    The ``kernels`` line is printed once, near the end, with the launch
-   counts of phases 4, 5, 8, 9 and 9b (phase 10 launches none).
+   counts of phases 4, 5, 8, 8b-8d, 9 and 9b (phase 10 launches none).
 4. ``solver``  ``SolverSpec(backend="auto").build().solve(...)`` on AoS and
    pre-packed batches: resolved to what the active tuning table names
    (the kernel on a miss), launch count advanced,
@@ -60,6 +61,28 @@ line:
    launched ``rgb_cuda``; the span ring exports a valid Chrome trace
    with complete span chains, and ``device_idle`` is printed.  The
    kernel geometries these flushes used join the ``kernels`` line.
+8b. ``bench``  ``repro_torch.serve_lp.bench`` with ``--method kernel``, one
+   line a mode, each with its own assertions and ``rgb_cuda``'s count set
+   to 0 just before it: the default traffic (2000 requests at 5000 LP/s,
+   m 8..1024, ``max_batch`` 64, ``--check 8``), ``--open-loop`` (its
+   in-flight gauges printed, not asserted: see ``BENCH_MODES``),
+   ``--open-loop --assert-fused``, ``--open-loop
+   --trace-out --assert-trace`` (its flush count beside the untraced
+   run's), ``--smoke --rpc --rpc-target-p99-ms 50 --assert-rpc`` (a
+   contract check at the smoke preset: its rates are no measurement) and
+   a traced open loop of m-1024 flushes of 1024; LP/s, p50/p99, in-flight
+   depth, fused flushes, the device-idle lower bound; ``--sharding pmap``
+   must raise ``ValueError``.  The geometries the
+   modes launched join the ``kernels`` line (``path="bench"``).
+8c. ``crowd``  ``examples/crowd_sim_torch.py`` at 16,384 agents (one LP of
+   8 constraints each a step): 60 direct steps (one ``rgb_cuda`` launch
+   each), then 10 served steps from the same start through the
+   scheduler; the step lines of both equal, positions after 10 steps
+   within 1e-5, ms a step by CUDA events, the worst clearance.  The first
+   step's LP batch joins the ``kernels`` line (``path="crowd"``).
+8d. ``quickstart`` ``examples/quickstart_torch.py`` at B=4096, m=128: the
+   naive, rgb and kernel backends agree to 5e-4, pre-packed equals AoS in
+   bits; its kernel shape joins the ``kernels`` line.
 9. ``train``   ``repro_torch.launch.train.main`` at full width: Qwen2-0.5B
    in bf16 with ``--lp-clip``, batch 8 x 512 tokens of synthetic data, 20
    steps checkpointed at step 10 into a temporary directory, then a second
@@ -79,7 +102,7 @@ line:
    one ``rgb_cuda`` launch a step; the median step, peak memory and one
    step's kernels; its 17-problem LP batch held against ``rgb_plain``
    bit for bit (``path="train-mamba2"``), and card against CPU over three
-   float32 smoke steps to the bounds of 9.
+   float32 smoke steps to the bounds of 9; the roofline terms of 9.
 10. ``lm_serve`` one line per architecture served at full width
    (qwen2-0.5b, olmoe-1b-7b, paligemma-3b, whisper-base, mamba2-1.3b,
    zamba2-2.7b):
@@ -87,7 +110,8 @@ line:
    of 8, prompts of 512 tokens (paligemma-3b: 256 after its 256 patches),
    32 tokens generated each: every token in the vocabulary, the cache's
    bytes as its shape says; prefill ms and the decode steps' ms (CUDA
-   events), tokens/s (host clock), peak memory, the KV cache's bytes
+   events), tokens/s (host clock), peak memory, the decode step's bytes
+   bound beside the reference's ``fused_hbm_estimate``, the KV cache's bytes
    beside what the real KV heads would need (the SSM families: the
    float32 state and the conv windows, which do not grow with the
    sequence), and one decode step's kernels from a profiler trace; (b)
@@ -107,6 +131,7 @@ file — it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -128,18 +153,14 @@ SEED = 20190213
 SHAPES = ((16384, 256), (2048, 2048), (64, 19456))
 VARIANTS = (("float32", 0), ("float32", 128), ("float64", 0))
 X_TOL = {"float32": 1e-4, "float64": 1e-9}
-# Published peaks of one H100 SXM: HBM bytes/s, FLOP/s outside the tensor
-# cores.  A roofline share is stated against these whatever the power limit.
-PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
-PEAK_BF16_FLOPS = 989e12   # dense bf16 on the tensor cores
+# The card's published peaks (``repro_torch.roofline.peaks_for`` of its
+# name), set in main(): a roofline share is stated against these whatever
+# the power limit.
+PEAKS = None
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/batch_lp.cu"
 KERNEL_REPLACES = "src/repro/kernels/batch_lp.py:63"
 
 SERVE_REQUESTS = 8192
-SERVE_SIZES = (8, 16, 32, 64, 128, 256, 512, 1024)
-SERVE_KINDS = ("feasible", "infeasible", "degenerate")
-SERVE_MIX = (0.8, 0.1, 0.1)
 
 
 class SmokeFailure(AssertionError):
@@ -309,16 +330,20 @@ def device_kernels(fn, top: int = 12) -> dict:
                           key=lambda x: -x[1])[:top]}
 
 
-def bound_ms(B, m_pad, dtype, mv_sum, resolve_work):
+def bound_ms(B, dtype, mv_sum, resolve_work):
     """Least time the card could take: each input read once and each
     output written once over the memory rate, against the operations these
     inputs need (~4 per constraint tested, ~12 per prior constraint
-    scanned by a re-solve actually taken) over the peak rate."""
+    scanned by a re-solve actually taken) over the peak rate.  The bytes
+    are those of the constraints the batch holds (``mv_sum`` of them, three
+    values each), not of its padding, plus each problem's ``c``,
+    ``m_valid``, ``x`` and flag."""
     item = np.dtype(dtype).itemsize
-    nbytes = B * 3 * m_pad * item + B * 2 * item + B * 4 + B * 2 * item + B * 4
+    nbytes = 3 * mv_sum * item + B * (2 * item + 4 + 2 * item + 4)
     ops = 4 * mv_sum + 12 * resolve_work
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = ops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / PEAKS.hbm_bytes_s * 1e3
+    t_ops = ops / {"float32": PEAKS.f32_flops,
+                   "float64": PEAKS.f64_flops}[dtype] * 1e3
     return (max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
 
@@ -386,7 +411,7 @@ def hold_and_time(device, card: str, inputs, B: int, m_pad: int, dtype: str,
     ms = time_device(launch)
     call_ms = time_launches(launch)
     bms, by, nbytes, ops = bound_ms(
-        B, m_pad, dtype, int(mv.sum()), stats.get("resolve_work", 0))
+        B, dtype, int(mv.sum()), stats.get("resolve_work", 0))
     geom = launch_geometry(m_pad, np.dtype(dtype).itemsize, tile)
     entry = {
         "name": "rgb_cuda", "route": "cuda", "source": KERNEL_SOURCE,
@@ -533,29 +558,19 @@ def phase_solver(device, card: str, entries: list, shapes=SHAPES) -> None:
                   "card": card})
 
 
-def serve_request(i: int):
-    """Request #i of the stream — a pure function of (SEED, i); numpy copy
-    of the reference serving benchmark's generator (0.8 feasible, 0.1
-    infeasible, 0.1 degenerate: every constraint tight at one point)."""
-    rng = np.random.default_rng(np.random.SeedSequence([SEED, i, 0x52E41]))
-    m = int(SERVE_SIZES[rng.integers(len(SERVE_SIZES))])
-    kind = SERVE_KINDS[rng.choice(3, p=np.asarray(SERVE_MIX))]
-    xstar = rng.uniform(-50.0, 50.0, 2)
-    theta = rng.uniform(0.0, 2.0 * np.pi, m)
-    A = np.stack([np.cos(theta), np.sin(theta)], axis=-1)
-    b = A @ xstar + rng.uniform(0.1, 5.0, m)
-    phi = rng.uniform(0.0, 2.0 * np.pi)
-    c = np.array([np.cos(phi), np.sin(phi)])
-    A, b, c = (a.astype(np.float32) for a in (A, b, c))
-    if kind == "degenerate":
-        b = (A @ rng.uniform(-50.0, 50.0, 2).astype(np.float32)
-             ).astype(np.float32)
-    elif kind == "infeasible":
-        A[0] = (1.0, 0.0)
-        b[0] = -1.0
-        A[1] = (-1.0, 0.0)
-        b[1] = -1.0
-    return A, b, c, kind
+GEOMETRY = ("bucket_m", "b_pad", "dtype", "tile", "chunk")
+
+
+def exec_specs_of(sched) -> list:
+    """What a scheduler's flushes really handed the kernel: on one card a
+    flush is one launch of ``(b_pad, 4, bucket_m)`` at the tile and chunk
+    pinned for it."""
+    return sorted(
+        ({"bucket_m": es.bucket_m, "b_pad": es.b_pad,
+          "dtype": es.solver.dtype, "tile": es.solver.tile,
+          "chunk": es.solver.chunk, "flushes": n}
+         for es, n in sched.cache.uses().items()),
+        key=lambda d: (-d["flushes"], -d["b_pad"], -d["bucket_m"]))
 
 
 def phase_serve(devices, card: str, n_requests: int = SERVE_REQUESTS,
@@ -564,10 +579,14 @@ def phase_serve(devices, card: str, n_requests: int = SERVE_REQUESTS,
     from repro_torch.core import pack_call_count
     from repro_torch.kernels.batch_lp import rgb_cuda
     from repro_torch.serve_lp import BatchScheduler
+    from repro_torch.serve_lp.bench import BenchConfig, make_request
     from repro_torch.solver import SolverSpec
 
     spec = SolverSpec(backend="kernel")
-    reqs = [serve_request(i) for i in range(n_requests)]
+    # the serving benchmark's stream (m from 8..1024, 0.8/0.1/0.1
+    # feasible, infeasible, degenerate) at this script's seed
+    cfg = BenchConfig(seed=SEED)
+    reqs = [make_request(cfg, i) for i in range(n_requests)]
 
     def drive(sched, items):
         t0 = time.perf_counter()
@@ -593,14 +612,7 @@ def phase_serve(devices, card: str, n_requests: int = SERVE_REQUESTS,
     repacks = pack_call_count() - packs0
     snap = sched.metrics.snapshot(sched.cache.stats())
     pinned = sched.buffers.pinned
-    # What the flushes really handed the kernel: on one card a flush is one
-    # launch of (b_pad, 4, bucket_m) at the tile and chunk pinned for it.
-    exec_specs = sorted(
-        ({"bucket_m": es.bucket_m, "b_pad": es.b_pad,
-          "dtype": es.solver.dtype, "tile": es.solver.tile,
-          "chunk": es.solver.chunk, "flushes": n}
-         for es, n in sched.cache.uses().items()),
-        key=lambda d: (-d["flushes"], -d["b_pad"], -d["bucket_m"]))
+    exec_specs = exec_specs_of(sched)
     for es in exec_specs:
         pin = sched._pin_for_bucket(es["bucket_m"], es["b_pad"])
         check((pin.tile, pin.chunk) == (es["tile"], es["chunk"]),
@@ -846,11 +858,12 @@ RPC_TARGET_P99_S = 0.025
 
 def rpc_problems(i: int):
     """Request #i of the RPC traffic: 1-8 LPs, each drawn as the
-    ``serve`` phase draws one (m from 8..1024, 0.8/0.1/0.1 feasible,
-    infeasible, degenerate)."""
+    ``serve`` phase draws one."""
+    from repro_torch.serve_lp.bench import BenchConfig, make_request
     rng = np.random.default_rng(np.random.SeedSequence([SEED, i, 0x4C50]))
     n = int(rng.integers(1, 9))
-    return [serve_request(1_000_000 + 8 * i + k)[:3] for k in range(n)]
+    cfg = BenchConfig(seed=SEED)
+    return [make_request(cfg, 1_000_000 + 8 * i + k)[:3] for k in range(n)]
 
 
 def phase_rpc(devices, card: str) -> dict:
@@ -932,12 +945,7 @@ def phase_rpc(devices, card: str) -> dict:
     finally:
         stop()
     sched = frontend.scheduler
-    exec_specs = sorted(
-        ({"bucket_m": es.bucket_m, "b_pad": es.b_pad,
-          "dtype": es.solver.dtype, "tile": es.solver.tile,
-          "chunk": es.solver.chunk, "flushes": n}
-         for es, n in sched.cache.uses().items()),
-        key=lambda d: (-d["flushes"], -d["b_pad"], -d["bucket_m"]))
+    exec_specs = exec_specs_of(sched)
     plans = frontend.slo.plans()
 
     statuses = [a[0] for a in answers]
@@ -1001,6 +1009,260 @@ def phase_rpc(devices, card: str) -> dict:
            "device_idle_window_s": idle["window_s"],
            "device_idle_is": "lower bound (host-observed solve windows)",
            "exec_specs": exec_specs, "card": card}
+    emit(out)
+    return out
+
+
+# The serving benchmark's modes, as the reference's CI runs them, through
+# repro_torch.serve_lp.bench on the card with the kernel backend, each with
+# the BenchConfig fields it overrides.  The open loop runs without
+# --assert-overlap, which is not reachable on one H100: the host dispatches
+# a flush of 64 every 5-24 ms and the card is done with each within about a
+# millisecond of its dispatch, so two are never in flight.  Its line prints
+# the gauges, and so does a traced open loop of m-1024 flushes of 1024 (the
+# largest flushes the bench's ladder makes), to show whether a mix of long
+# solves overlaps.
+BENCH_MODES = (
+    ("default", ["--check", "8"], {}),
+    ("open-loop", ["--open-loop"], {}),
+    ("fused", ["--open-loop", "--assert-fused"], {}),
+    ("trace", ["--open-loop", "--trace-out", None, "--assert-trace"], {}),
+    ("rpc", ["--smoke", "--rpc", "--rpc-target-p99-ms", "50",
+             "--assert-rpc"], {}),
+    ("open-loop-m1024", ["--open-loop", "--trace", "--requests", "16384",
+                         "--max-batch", "1024", "--max-wait-ms", "1000",
+                         "--tile", "8"], {"m_min": 1024}),
+)
+TRACED_MODES = ("trace", "open-loop-m1024")
+
+
+def spread_ms(seconds: list) -> list:
+    """``[min, median, max]`` of durations in seconds, as milliseconds."""
+    xs = sorted(seconds)
+    return [xs[0] * 1e3, xs[len(xs) // 2] * 1e3, xs[-1] * 1e3] if xs \
+        else None
+
+
+def phase_bench(devices, card: str) -> dict:
+    """Each mode of the serving benchmark with ``--method kernel``, its
+    own assertions on, ``rgb_cuda``'s count set to 0 just before it and
+    read just after; then ``--sharding pmap``, which must raise the
+    reference's ``ValueError``.  Returns the geometries the modes
+    launched (flushes summed over modes)."""
+    import tempfile
+
+    from repro_torch.kernels.batch_lp import rgb_cuda
+    from repro_torch.serve_lp import bench
+
+    geoms: dict = {}
+    flushes = {}
+    t_all = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_") as tmp:
+        for mode, flags, over in BENCH_MODES:
+            argv = ["--method", "kernel"] + [
+                os.path.join(tmp, "trace.json") if f is None else f
+                for f in flags]
+            rgb_cuda.launches = 0
+            t0 = time.perf_counter()
+            if over:
+                snap, sched = bench.run_traffic(dataclasses.replace(
+                    bench.parse_config(argv), **over), devices=devices,
+                    quiet=True)
+            else:
+                snap, sched = bench.main(argv, devices=devices, quiet=True)
+            seconds = time.perf_counter() - t0
+            launches = rgb_cuda.launches
+            check(launches > 0, f"bench {mode}: rgb_cuda was not launched")
+            specs = exec_specs_of(sched)
+            for es in specs:
+                key = tuple(es[k] for k in GEOMETRY)
+                geoms[key] = geoms.get(key, 0) + es["flushes"]
+            out = {"phase": "bench", "mode": mode, "argv": argv,
+                   "overrides": over, "launches": launches,
+                   "seconds": seconds}
+            if mode == "rpc":
+                cl, ov = snap["closed_loop"], snap["overload"]
+                out.update({
+                    "closed_loop_rps": cl["rps"], "p50_ms": cl["p50_ms"],
+                    "p99_ms": cl["p99_ms"], "closed_loop_ok": cl["ok"],
+                    "overload_accepted": ov["accepted"],
+                    "overload_shed_429": ov["shed_429"],
+                    "shed_rate": ov["shed_rate"],
+                    "slo_plans": snap["slo"]})
+            else:
+                flushes[mode] = snap["n_flushes"]
+                out.update({
+                    "requests": snap["n_solved"],
+                    "lps": snap["n_solved"] / snap["wall_s"],
+                    "wall_s": snap["wall_s"],
+                    "p50_ms": snap["latency_p50_ms"],
+                    "p99_ms": snap["latency_p99_ms"],
+                    "n_flushes": snap["n_flushes"],
+                    "flush_reasons": snap["flush_reasons"],
+                    "inflight_max": snap["inflight_max"],
+                    "overlapped_dispatches": snap["overlapped_dispatches"],
+                    "fused_flushes": snap["fused_flushes"],
+                    "fused_buckets": snap["fused_buckets"],
+                    "device_idle_s_est": snap["device_idle_s_est"],
+                    "device_idle_frac": snap.get("device_idle_frac"),
+                    "device_idle_is": snap.get(
+                        "device_idle_is", "not measured (no trace)")})
+            if mode in TRACED_MODES:
+                # why nothing overlaps on one card: how far apart the host
+                # dispatches flushes, and how long each is in flight
+                spans = sched.tracer.spans()
+                starts = sorted(sp.t_start for sp in spans
+                                if sp.name == "flush.dispatch")
+                solves = [sp.t_end - sp.t_start for sp in spans
+                          if sp.name == "device.solve"]
+                out.update({"device_tracks": snap["device_tracks"],
+                            "trace_complete_chains":
+                                snap["trace_complete_chains"],
+                            "dispatch_gap_ms": spread_ms(
+                                [b - a for a, b in zip(starts, starts[1:])]),
+                            "device_solve_ms": spread_ms(solves)})
+            if mode == "trace":
+                # the same open-loop stream untraced
+                out["n_flushes_untraced"] = flushes["open-loop"]
+            out.update({"exec_specs": specs, "card": card})
+            emit(out)
+        try:
+            bench.main(["--method", "kernel", "--sharding", "pmap"],
+                       devices=devices, quiet=True)
+            raised = None
+        except ValueError as e:
+            raised = f"ValueError: {e}"
+    check(raised is not None, "bench --sharding pmap did not raise")
+    emit({"phase": "bench", "mode": "pmap", "raised": raised, "card": card})
+    return {"exec_specs": [dict(zip(GEOMETRY, k), flushes=n) for k, n in
+                           sorted(geoms.items(), key=lambda kv: -kv[1])],
+            "seconds": time.perf_counter() - t_all}
+
+
+# The paper's application at its figure-3 batch: one LP of K_NEIGH
+# constraints per agent per step.
+CROWD_AGENTS, CROWD_DIRECT_STEPS, CROWD_SERVED_STEPS = 16384, 60, 10
+CROWD_POS_TOL = 1e-5
+
+
+def import_example(name: str):
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    try:
+        return __import__(name)
+    finally:
+        sys.path.pop(0)
+
+
+def phase_crowd(device, card: str) -> tuple:
+    """``examples/crowd_sim_torch.py`` at 16,384 agents on the card: 60
+    direct steps (one ``rgb_cuda`` launch each), then 10 served steps
+    from the same start through ``BatchScheduler``; the step lines of the
+    first 10 steps and the positions after them must match.  Returns the
+    phase line and the first step's LP batch (numpy)."""
+    from repro_torch.kernels.batch_lp import rgb_cuda
+    from repro_torch.serve_lp import BatchScheduler
+    crowd = import_example("crowd_sim_torch")
+
+    n = CROWD_AGENTS
+    pos_np, goal_np = crowd.spawn(n, 0)
+    pos0 = torch.as_tensor(pos_np, device=device)
+    goal = torch.as_tensor(goal_np, device=device)
+    spec = crowd.spec_for(device)
+    lp = crowd.step_constraints(pos0, goal - pos0)
+    first = (lp.A.cpu().numpy(), lp.b.cpu().numpy(), lp.c.cpu().numpy(),
+             lp.m_valid.cpu().numpy())
+    logged = {0, CROWD_SERVED_STEPS - 1}
+
+    def run(step, steps):
+        pos, ms, lines, gaps, at = pos0, [], {}, [], None
+        for t in range(steps):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            pos = step(pos)
+            stop.record()
+            stop.synchronize()
+            ms.append(start.elapsed_time(stop))
+            if t in logged or t % 20 == 0 or t == steps - 1:
+                line, gap = crowd.step_line(t, pos, goal)
+                lines[t] = line
+                gaps.append(gap)
+            if t == CROWD_SERVED_STEPS - 1:
+                at = pos.clone()
+        return at, ms, lines, min(gaps)
+
+    solver = spec.build(device=device)
+    check(solver.spec.backend == "kernel" and solver.device == device,
+          f"the crowd sim's solver is not the kernel on the card: {solver}")
+    rgb_cuda.launches = 0
+    at_d, ms_d, lines_d, gap_d = run(
+        lambda p: crowd.sim_step(p, goal, solver), CROWD_DIRECT_STEPS)
+    launches_d = rgb_cuda.launches
+    sched = BatchScheduler(spec, max_batch=n, devices=[device])
+    try:
+        rgb_cuda.launches = 0
+        at_s, ms_s, lines_s, gap_s = run(
+            lambda p: crowd.sim_step_served(p, goal, sched),
+            CROWD_SERVED_STEPS)
+        launches_s = rgb_cuda.launches
+        snap = sched.metrics.snapshot(sched.cache.stats())
+        specs = exec_specs_of(sched)
+    finally:
+        sched.close()
+    check(launches_d == CROWD_DIRECT_STEPS,
+          f"crowd: {launches_d} rgb_cuda launches in {CROWD_DIRECT_STEPS} "
+          "direct steps")
+    check(launches_s >= CROWD_SERVED_STEPS,
+          f"crowd: {launches_s} launches in {CROWD_SERVED_STEPS} served "
+          "steps")
+    same = [t for t in sorted(logged) if lines_d[t] == lines_s[t]]
+    check(len(same) == len(logged),
+          f"crowd: direct and served step lines differ: "
+          f"{[(lines_d[t], lines_s[t]) for t in sorted(logged)]}")
+    pos_err = float((at_d - at_s).abs().max())
+    check(pos_err <= CROWD_POS_TOL,
+          f"crowd: positions after {CROWD_SERVED_STEPS} steps differ by "
+          f"{pos_err}")
+    check(bool(torch.isfinite(at_d).all()), "crowd: non-finite positions")
+    med = lambda xs: sorted(xs)[len(xs) // 2]
+    d_ms, s_ms = med(ms_d[1:]), med(ms_s[1:])
+    out = {"phase": "crowd", "agents": n, "constraints": crowd.K_NEIGH,
+           "spec": repr(solver.spec),
+           "direct_steps": CROWD_DIRECT_STEPS,
+           "served_steps": CROWD_SERVED_STEPS,
+           "direct_step_ms_median": d_ms, "direct_lps": n / (d_ms / 1e3),
+           "direct_first_step_ms": ms_d[0],
+           "served_step_ms_median": s_ms, "served_lps": n / (s_ms / 1e3),
+           "launches_direct": launches_d, "launches_served": launches_s,
+           "served_flushes": snap["n_flushes"], "exec_specs": specs,
+           "lines": [lines_d[t] for t in sorted(lines_d)],
+           "lines_served": [lines_s[t] for t in sorted(lines_s)],
+           "tile": solver.spec.tile, "chunk": solver.spec.chunk,
+           "M": solver.spec.M,
+           "max_pos_diff_after_10": pos_err,
+           "worst_clearance": min(gap_d, gap_s),
+           "two_radii": 2 * crowd.RADIUS, "card": card}
+    emit(out)
+    return out, first
+
+
+def phase_quickstart(device, card: str) -> dict:
+    """``examples/quickstart_torch.py`` on the card (B=4096, m=128): the
+    naive, rgb and kernel backends agree, pre-packed equals AoS in bits,
+    and the kernel backend launched ``rgb_cuda``."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels.batch_lp import rgb_cuda
+    quickstart = import_example("quickstart_torch")
+    rgb_cuda.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = quickstart.main([], device=device)
+    launches = rgb_cuda.launches
+    check(launches >= 2, f"quickstart: {launches} rgb_cuda launches")
+    out = {"phase": "quickstart", **res, "launches": launches,
+           "card": card}
     emit(out)
     return out
 
@@ -1079,8 +1341,10 @@ def drive_train(ckpt_dir: str) -> dict:
 def train_matmul_flops(cfg, lay, B: int, S: int) -> float:
     """The matrix-multiply FLOPs of one training step of the dense LM at
     ``B x S`` tokens: projections, MLP and head forward (2 per MAC),
-    backward (twice the forward), the blocks' forward again under remat,
-    and the attention score and value products."""
+    backward (twice the forward), the attention score and value products,
+    and under remat the blocks' forward again up to the last tensor the
+    backward needs: torch's non-reentrant checkpoint stops there, so each
+    block's down projection is not recomputed."""
     d, hd, f, Lr = cfg.d_model, cfg.hd, cfg.d_ff, cfg.n_layers
     v_pad = -(-cfg.vocab // 256) * 256
     block = d * (lay.h_pad + 2 * lay.kv_total) * hd + lay.h_pad * hd * d \
@@ -1089,8 +1353,40 @@ def train_matmul_flops(cfg, lay, B: int, S: int) -> float:
     n = B * S
     fwd_blocks = 2 * n * Lr * (block + attn)
     fwd_head = 2 * n * v_pad * d
-    remat = 2 if cfg.remat else 1
-    return 3 * (fwd_blocks + fwd_head) + (remat - 1) * fwd_blocks
+    remat = fwd_blocks - 2 * n * Lr * f * d if cfg.remat else 0
+    return 3 * (fwd_blocks + fwd_head) + remat
+
+
+def count_step(model, params, batch) -> dict:
+    """``repro_torch.roofline.count_call`` of one forward + backward of
+    ``model``'s loss on ``batch`` (on meta tensors where every op runs
+    there, else on the card; ``ran_on`` says which)."""
+    from repro_torch.roofline import count_call
+    from repro_torch.tree import tree_leaves
+
+    def fwd_bwd(params, batch):
+        with torch.enable_grad():
+            loss, _ = model.loss(params, batch)
+            return torch.autograd.grad(loss, tree_leaves(params))
+
+    c = count_call(fwd_bwd, params, batch)
+    return {"flops": c.flops, "bytes": c.bytes, "ran_on": c.ran_on}
+
+
+def train_roofline(cfg, median_step_ms: float, count: dict) -> dict:
+    """The step's roofline terms from ``repro_torch.roofline``: useful
+    work 6 N D, its share of the bf16 peak at the median step (``mfu``),
+    and the counted step against the card's peaks."""
+    from repro_torch.roofline import (from_counts, fused_hbm_estimate,
+                                      model_flops_estimate)
+    mf = model_flops_estimate(cfg, "train", TRAIN_BATCH, TRAIN_SEQ)
+    roof = from_counts(count["flops"], count["bytes"], chips=1,
+                       model_flops=mf, peaks=PEAKS,
+                       hbm_fused=fused_hbm_estimate(
+                           cfg, "train", TRAIN_BATCH, TRAIN_SEQ, 1, 1))
+    return {"model_flops": mf,
+            "mfu": mf / (median_step_ms / 1e3 * PEAKS.bf16_flops),
+            "count_call": count, "roofline": roof.as_dict()}
 
 
 def step_lp_batch(updates, grads, opt_state, params) -> tuple:
@@ -1167,7 +1463,16 @@ def split_step(device) -> tuple:
     }
     flops = train_matmul_flops(cfg, model.lay, TRAIN_BATCH, TRAIN_SEQ)
     out["matmul_flops"] = flops
-    out["matmul_bound_ms"] = flops / PEAK_BF16_FLOPS * 1e3
+    out["matmul_bound_ms"] = flops / PEAKS.bf16_flops * 1e3
+    count = count_step(model, params, batch)
+    out["count_call"] = count
+    rel = count["flops"] / flops - 1.0
+    out["count_call_vs_matmul_flops"] = rel
+    # what separates the count from a formula that recomputes the whole
+    # block under remat: the down projections torch's checkpoint does not
+    # recompute
+    out["remat_down_proj_flops"] = (2 * TRAIN_BATCH * TRAIN_SEQ
+                                    * cfg.n_layers * cfg.d_ff * cfg.d_model)
     out["step_kernels"] = device_kernels(
         lambda: prog.step(params, state, batch, {}))
     return out, lp_batch
@@ -1242,8 +1547,11 @@ def phase_train(device, card: str) -> dict:
         drive = drive_train(d)
     split, lp_batch = split_step(device)
     parity = card_vs_cpu(device)
+    from repro_torch.configs import ARCHS
     out = {"phase": "train", "arch": TRAIN_ARCH, "batch": TRAIN_BATCH,
            "seq": TRAIN_SEQ, "dtype": "bfloat16", **drive,
+           **train_roofline(ARCHS[TRAIN_ARCH], drive["median_step_ms"],
+                            split["count_call"]),
            "split": split,
            "lp_clip_share": split["lp_clip_ms"] / drive["median_step_ms"],
            "card_vs_cpu": parity,
@@ -1309,6 +1617,7 @@ def phase_train_ssm(device, card: str) -> tuple:
     params, state, _, _ = prog.step(params, state, batch, {})
     step_kernels = device_kernels(lambda: prog.step(params, state, batch,
                                                     {}))
+    count = count_step(model, params, batch)
     with torch.enable_grad():
         loss, _ = model.loss(params, batch)
         grads = tree_unflatten(params, torch.autograd.grad(
@@ -1330,6 +1639,7 @@ def phase_train_ssm(device, card: str) -> tuple:
            "losses": losses, "lp_s1": s1s, "step_ms": [r[2] for r in rows],
            "median_step_ms": median_ms,
            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (median_ms / 1e3),
+           **train_roofline(cfg, median_ms, count),
            "max_memory_allocated": peak, "run_seconds": run_s,
            "launches": launches, "lp_problems": int(lp_batch[1].shape[0]),
            "step_kernels": step_kernels,
@@ -1508,7 +1818,14 @@ def serve_arch(device, card: str, arch: str, prompt_len: int) -> dict:
     # a decode step reads every weight and the whole cache (K/V, SSM
     # state and conv windows) at least once
     out["decode_bytes_bound_ms"] = (weight_bytes + kv_bytes + state_bytes) \
-        / PEAK_BYTES_S * 1e3
+        / PEAKS.hbm_bytes_s * 1e3
+    # the reference's analytic estimate of the same step: at least 16 KV
+    # heads, the fp32 logits, the config's (unpadded) parameter count
+    from repro_torch.roofline import fused_hbm_estimate
+    out["fused_hbm_decode_bytes"] = fused_hbm_estimate(cfg, "decode",
+                                                       LM_BATCH, seq, 1, 1)
+    out["fused_hbm_decode_ms"] = out["fused_hbm_decode_bytes"] \
+        / PEAKS.hbm_bytes_s * 1e3
     del pre, dec, params, cache, logits
     free_card()
     return out
@@ -1677,8 +1994,11 @@ def main() -> int:
               "one", file=sys.stderr)
         return 2
     from repro_torch.device import card_info, default_device, default_devices
-    from repro_torch.kernels.batch_lp import rgb_cuda
+    from repro_torch.kernels.batch_lp import LANE, rgb_cuda
+    from repro_torch.roofline import peaks_for
+    from repro_torch.solver import SolverSpec
 
+    global PEAKS
     device = default_device()
     card = card_info()
     t_start = time.perf_counter()
@@ -1686,6 +2006,7 @@ def main() -> int:
         check(card is not None,
               "nvidia-smi did not give the card's name and power limit, "
               "which every number printed here must carry")
+        PEAKS = peaks_for(torch.cuda.get_device_name(0))
         phase_probe(card)
         phase_build(card)
         entries = phase_kernels(device, card)
@@ -1695,6 +2016,9 @@ def main() -> int:
         phase_pdhg(device, card)
         phase_tune(device, card)
         rpc = phase_rpc(default_devices()[:1], card)
+        bench = phase_bench(default_devices()[:1], card)
+        crowd, crowd_lp = phase_crowd(device, card)
+        quick = phase_quickstart(device, card)
         train, lp_batch = phase_train(device, card)
         train_ssm, lp_batch_ssm = phase_train_ssm(device, card)
         phase_lm_serve(device, card)
@@ -1708,6 +2032,21 @@ def main() -> int:
         entries += phase_serve_kernels(device, card, serve["exec_specs"])
         entries += phase_serve_kernels(device, card, rpc["exec_specs"],
                                        path="rpc")
+        entries += phase_serve_kernels(device, card, bench["exec_specs"],
+                                       path="bench")
+        e = hold_and_time(device, card, (crowd_lp, crowd_lp),
+                          CROWD_AGENTS, LANE, "float32", crowd["tile"],
+                          crowd["chunk"], "crowd", {}, M=crowd["M"])
+        e["launches"] = crowd["launches_direct"] + crowd["launches_served"]
+        entries.append(e)
+        qb, qm = quick["batch"], quick["m"]
+        q_tile = SolverSpec(backend="kernel").resolve_for_shape(
+            qm, qb, platform="cuda").tile
+        e = hold_and_time(device, card, check_inputs(
+            np.random.default_rng([SEED, 10]), qb, qm), qb, qm, "float32",
+            q_tile, 0, "quickstart", {})
+        e["launches"] = quick["launches"]
+        entries.append(e)
         for e in entries:
             check(e["launches"] > 0,
                   f"the main path never launched {e['name']} "

@@ -29,8 +29,8 @@ you already hold one uniform batch.  The scheduler takes the same spec —
 ``BatchScheduler(SolverSpec(...))`` — and embeds it in every flush's
 :class:`ExecSpec` cache key.
 
-The RPC front end and the serving benchmark of the reference are not
-ported yet.
+The HTTP front end is :mod:`repro_torch.serve_lp.rpc`; the reference's
+serving benchmark is :mod:`repro_torch.serve_lp.bench`.
 """
 from repro_torch.serve_lp.buckets import (SHARDING_MODES, ExecSpec,
                                           ExecutableCache, bucket_batch,

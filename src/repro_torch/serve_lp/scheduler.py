@@ -502,6 +502,11 @@ class BatchScheduler:
         return len(self._devices)
 
     @property
+    def devices(self) -> List[torch.device]:
+        """The devices flushes are sharded over."""
+        return list(self._devices)
+
+    @property
     def inflight(self) -> int:
         """Flushes currently dispatched but not yet completed."""
         with self._inflight_cv:

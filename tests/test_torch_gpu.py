@@ -3,7 +3,8 @@ its plain PyTorch version on the same tensors, and the main paths on the card
 (solver, scheduler, pdhg, the tuner's fence, one RPC round trip, a full-width
 LP-clipped training step, train steps card against CPU, a bf16 checkpoint
 round trip, the MoE layer, the SSD scan and a decode step of every family
-card against CPU, the serving entry point on the card).
+card against CPU, the serving entry point on the card, the serving
+benchmark with the kernel backend, the crowd simulation's two paths).
 
 Run them on a machine with a Hopper card and ``nvcc``::
 
@@ -620,3 +621,38 @@ def test_serve_main_on_the_card_whisper_smoke(card, capsys):
     assert all(((t >= 0) & (t < cfg.vocab)).all() for t in run.tokens)
     assert len(run.prefill_ms) == 2 and all(ms > 0 for ms in run.prefill_ms)
     assert [len(d) for d in run.decode_ms] == [4, 4]
+
+
+def test_bench_smoke_with_the_kernel_on_the_card(card):
+    """The serving benchmark's smoke traffic with ``--method kernel``:
+    its flushes launch the CUDA kernel, the fusing assertion holds, and
+    its direct-solve check passes (``--check 8``).  (``--assert-overlap``
+    is not reachable on one card: each flush is done long before the host
+    has assembled the next.)"""
+    from repro_torch.serve_lp import bench
+    n0 = rgb_cuda.launches
+    snap, sched = bench.main(["--smoke", "--method", "kernel",
+                              "--open-loop", "--assert-fused"],
+                             devices=[card], quiet=True)
+    assert snap["n_solved"] == 160 and snap["errors"] == {}
+    assert snap["inflight_max"] >= 1 and snap["inflight_now"] == 0
+    assert rgb_cuda.launches > n0
+    assert sched.spec.backend == "kernel" and sched.spec.interpret is False
+
+
+def test_crowd_sim_direct_and_served_on_the_card(card):
+    """The crowd simulation's two paths on the card print the same step
+    lines and reach the same positions (1e-5), one kernel launch a direct
+    step."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "..", "examples"))
+    import crowd_sim_torch as crowd
+    n0 = rgb_cuda.launches
+    direct = crowd.main(["--agents", "512", "--steps", "10", "--direct"],
+                        device=card)
+    assert rgb_cuda.launches == n0 + 10
+    served = crowd.main(["--agents", "512", "--steps", "10"], device=card)
+    assert served["lines"] == direct["lines"]
+    assert float((served["pos"] - direct["pos"]).abs().max()) <= 1e-5

@@ -38,13 +38,15 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 # -- the port stands alone ------------------------------------------------
 
 def test_port_imports_neither_jax_nor_the_reference():
-    """No file of the port (or of ``chip_smoke.py``) imports ``jax`` or the
-    ``repro`` package — not even a JAX-free module of it."""
+    """No file of the port (nor ``chip_smoke.py``, nor the port's examples)
+    imports ``jax`` or the ``repro`` package — not even a JAX-free module
+    of it."""
     pat = re.compile(
         r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_)"
         r"|from\s+repro(\s|\.))", re.M)
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "scripts" / "tune_table.py"]
+    files += sorted((REPO / "examples").glob("*_torch.py"))
     assert len(files) > 20
     hits = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
             for f in files for m in pat.finditer(f.read_text())]
