@@ -12,7 +12,8 @@ README's example width of 256 constraints, Qwen2-0.5B and Mamba2-1.3B
 trained at full width with the LP solver inside their optimizer, six
 language models served at full width, the solve service's own benchmark in
 all its modes and the paper's crowd simulation at 16,384 agents — and
-prints one JSON object per line:
+and, in its ``dist`` phase, trains and serves Qwen2-0.5B at full width on meshes
+of ranks over ``torch.distributed`` — and prints one JSON object per line:
 
 1. ``probe``   PyTorch / CUDA versions, device name and power limit, nvcc.
 2. ``build``   builds ``src/repro_torch/kernels/csrc/batch_lp.cu`` for
@@ -31,12 +32,13 @@ prints one JSON object per line:
    is done at every shape, tile and chunk the serving and RPC runs really
    launched the kernel with (read from the scheduler's executable cache).
    The ``kernels`` line is printed once, near the end, with the launch
-   counts of phases 4, 5, 8, 8b-8d, 9 and 9b (phase 10 launches none).
+   counts of phases 4, 5, 8, 8b-8d, 9, 9b and 11 (phase 10 launches none).
 4. ``solver``  ``SolverSpec(backend="auto").build().solve(...)`` on AoS and
    pre-packed batches: resolved to what the active tuning table names
    (the kernel on a miss), launch count advanced,
    packed-vs-AoS bit-identical, agreement with the plain RGB solver.
-5. ``serve``   ``BatchScheduler`` answering 8192 single-LP requests of mixed
+5. ``serve``   ``BatchScheduler`` over every visible card (``n_devices``)
+   answering 8192 single-LP requests of mixed
    size and kind: every future resolves, a sample re-solved directly is
    bit-identical, kernel launches equal the metrics' launch count and
    the flushes the executable cache served, zero repacks.
@@ -81,8 +83,9 @@ prints one JSON object per line:
    within 1e-5, ms a step by CUDA events, the worst clearance.  The first
    step's LP batch joins the ``kernels`` line (``path="crowd"``).
 8d. ``quickstart`` ``examples/quickstart_torch.py`` at B=4096, m=128: the
-   naive, rgb and kernel backends agree to 5e-4, pre-packed equals AoS in
-   bits; its kernel shape joins the ``kernels`` line.
+   kernel solves the whole batch, the plain naive and rgb backends its first
+   512 problems (``--plain-slice``), all agree there to 5e-4, pre-packed
+   equals AoS in bits; its kernel shape joins the ``kernels`` line.
 9. ``train``   ``repro_torch.launch.train.main`` at full width: Qwen2-0.5B
    in bf16 with ``--lp-clip``, batch 8 x 512 tokens of synthetic data, 20
    steps checkpointed at step 10 into a temporary directory, then a second
@@ -122,6 +125,26 @@ prints one JSON object per line:
    card and on the CPU from the same weights: logits within 1e-5 of the
    largest |logit|.  No LP is solved on this path: ``rgb_cuda`` is
    launched 0 times, and each line says so.
+11. ``dist``   each rank a process (this file with ``--dist-rank``):
+   (a) NCCL, one rank a card (``device_count`` ranks): 3 LP-clipped
+   full-width Qwen2-0.5B bf16 steps (8 x 512) on the ``(ranks, 1)`` mesh; at
+   one rank equal in bits to the ``HostMesh`` steps of the same process;
+   (b) four gloo ranks sharing card 0 (NCCL refuses two ranks on one card),
+   every payload through pinned host memory: 3 float32 steps (4 x 256) on a
+   2x2 mesh, tensor + data parallel and again with ``fsdp=True``: loss and
+   ``lp_s1`` within 1e-4 of the one-card steps, step 1's gradients within
+   1e-4 of each leaf's largest, each leaf after step 1 within 1e-4 of its
+   largest value where its one-card gradient is above 1e-4 of the leaf's
+   largest (AdamW's first step moves a parameter by about ``lr`` whatever
+   its gradient's size, so a rounding-level gradient summed in another
+   order can move it by up to ``2 lr``: every element is held to that),
+   every rank's LP batch equal in bits and ``rgb_cuda`` launched once a
+   step a rank; prefill + 4 decode steps on (1, 4) within 1e-5 of the
+   largest one-card logit; (c) ``make_lp_step`` at ``B=16384, m=256`` on
+   the 2x2 mesh equal in bits to one rank.  Each line: world, mesh,
+   backend and transport, step ms (CUDA events; ``ranks_share_one_card``
+   where they do), peak memory a rank, collectives a step by op.  Rank
+   0's first LP batch joins the ``kernels`` line (``path="dist"``).
 
 Every input is made from a fixed numpy seed.  Any failed check exits
 non-zero.  The last line is exactly
@@ -648,6 +671,7 @@ def phase_serve(devices, card: str, n_requests: int = SERVE_REQUESTS,
     lat = np.sort(np.array([r.latency_s for r in results]))
     out = {"phase": "serve", "requests": n_requests, "max_batch": max_batch,
            "max_wait_s": 0.005, "devices": [str(d) for d in devices],
+           "n_devices": len(devices),
            "pinned_buffers": pinned,
            "submit_seconds": t_submit, "total_seconds": t_total,
            "lps": n_requests / t_total,
@@ -1246,6 +1270,11 @@ def phase_crowd(device, card: str) -> tuple:
     return out, first
 
 
+# The plain backends (naive, rgb) take ~20 s each at the quickstart's whole
+# batch on the card: they solve its first 512 problems, the kernel all.
+QUICKSTART_PLAIN = 512
+
+
 def phase_quickstart(device, card: str) -> dict:
     """``examples/quickstart_torch.py`` on the card (B=4096, m=128): the
     naive, rgb and kernel backends agree, pre-packed equals AoS in bits,
@@ -1258,7 +1287,8 @@ def phase_quickstart(device, card: str) -> dict:
     rgb_cuda.launches = 0
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        res = quickstart.main([], device=device)
+        res = quickstart.main(["--plain-slice", str(QUICKSTART_PLAIN)],
+                              device=device)
     launches = rgb_cuda.launches
     check(launches >= 2, f"quickstart: {launches} rgb_cuda launches")
     out = {"phase": "quickstart", **res, "launches": launches,
@@ -1987,7 +2017,477 @@ def phase_train_kernel(device, card: str, lp_batch, launches: int,
     return entry
 
 
+# ---------------------------------------------------------------------------
+# The multi-rank phase: the train and serve steps on meshes of ranks over
+# torch.distributed, and the batch-sharded LP step.  Each rank is a child
+# process running this file with ``--dist-rank``; the parent reads what the
+# ranks wrote.  (a) NCCL, one rank a card (``device_count`` ranks);
+# (b) four gloo ranks sharing card 0 (NCCL refuses two ranks on one card),
+# their payloads through pinned host memory.
+# ---------------------------------------------------------------------------
+
+DIST_ARCH = "qwen2-0.5b"
+DIST_STEPS = 3
+DIST_NCCL_BATCH, DIST_NCCL_SEQ = 8, 512     # (a): the train phase's shape
+DIST_GLOO_BATCH, DIST_GLOO_SEQ = 4, 256     # (b): float32, 2 data shards
+DIST_GLOO_WORLD = 4
+DIST_SERVE_BATCH, DIST_SERVE_PROMPT, DIST_SERVE_DECODE = 2, 128, 4
+DIST_TOL = 1e-4          # loss, lp_s1, step 1's gradients, the leaves after
+DIST_LR = 3e-4           # AdamW's default learning rate, which the runs use
+DIST_SERVE_TOL = 1e-5    # logits, of the largest |logit|
+DIST_TIMEOUT_S = 600
+
+
+def _dist_cfg(dtype: str, **kw):
+    from repro_torch.configs import ARCHS
+    return dataclasses.replace(ARCHS[DIST_ARCH], dtype=dtype, **kw)
+
+
+def _dist_train(mesh, cfg, batch: int, seq: int, *, lp_spy=None,
+                keep=("params_1",)) -> dict:
+    """``DIST_STEPS`` LP-clipped train steps of ``cfg`` on ``mesh`` from the
+    seeded init (train.main's composition, timed): each step's loss,
+    lp_s1 and CUDA-event ms, the collectives of the last step, peak
+    memory, the rgb_cuda launches of the run and, as ``keep`` asks, the
+    whole parameters after step 1 and at the end (on the card)."""
+    from repro_torch import dist as D
+    from repro_torch.data.pipeline import TokenSource, for_model
+    from repro_torch.kernels.batch_lp import rgb_cuda
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamW
+    from repro_torch.optim import lp_clip as lp_clip_mod
+
+    dev = mesh.device
+    torch.empty(1, device=dev)  # the allocator must exist to be reset
+    torch.cuda.reset_peak_memory_stats(dev)
+    opt = AdamW(lr=DIST_LR)
+    prog = make_train_step(cfg, mesh, opt, global_batch=batch, lp_clip=True)
+    params = prog.model.init(torch.Generator(device=dev).manual_seed(SEED))
+    state = opt.init(params)
+    src = TokenSource(for_model(cfg, seq, batch, seed=SEED))
+    real = lp_clip_mod.make_batch
+    if lp_spy is not None:
+        def spy(A, b, c, *a, **k):
+            lp_spy.append(tuple(t.detach().cpu().numpy() for t in (A, b, c)))
+            return real(A, b, c, *a, **k)
+        lp_clip_mod.make_batch = spy
+    out = {"loss": [], "lp_s1": [], "step_ms": []}
+    grads_1 = None
+    if "params_1" in keep:  # step 1's gradients, whole, for the checks
+        first = {k: torch.as_tensor(v, device=dev)
+                 for k, v in src.global_batch(0).items()}
+        _, g = prog.grads(params, first)
+        grads_1 = _whole(prog.model, g)
+        del g
+    rgb_cuda.launches = 0
+    try:
+        for step in range(DIST_STEPS):
+            bt = {k: torch.as_tensor(v, device=dev)
+                  for k, v in src.global_batch(step).items()}
+            D.reset_counts()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            params, state, m, _ = prog.step(params, state, bt, {})
+            b.record()
+            torch.cuda.synchronize(dev)
+            out["step_ms"].append(a.elapsed_time(b))
+            out["loss"].append(float(m["loss"]))
+            out["lp_s1"].append(float(m["lp_s1"]))
+            out["collectives"] = D.counts()
+            if step == 0 and "params_1" in keep:
+                out["params_1"] = _whole(prog.model)
+                out["grads_1"] = grads_1
+    finally:
+        lp_clip_mod.make_batch = real
+    out["launches"] = rgb_cuda.launches
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    if "final" in keep:
+        out["final"] = _whole(prog.model)
+    return out
+
+
+def _whole(model, tree=None) -> dict:
+    """The model's whole parameters (or ``tree`` of their shapes), on its
+    card, by slash path."""
+    from repro_torch.dist import flat_specs, gather_leaf
+    from repro_torch.tree import flatten_with_paths
+    flat = flatten_with_paths(model.param_tree() if tree is None else tree)
+    if not model.sharded:
+        return {k: v.detach().clone() for k, v in flat.items()}
+    specs = flat_specs(model.full_param_specs())
+    return {k: gather_leaf(v, specs[k], model.mesh) for k, v in flat.items()}
+
+
+def _leaf_err(a: dict, b: dict) -> dict:
+    """Each leaf's max |a - b| / max |b|."""
+    out = {}
+    for k, ref in b.items():
+        den = float(ref.abs().max()) or 1.0
+        out[k] = float((a[k].float() - ref.float()).abs().max()) / den
+    return out
+
+
+def _step1_err(p: dict, p_one: dict, g: dict, g_one: dict) -> dict:
+    """Each leaf after step 1 against one card, in units of the leaf's
+    largest |value|: overall, and on the elements whose one-card gradient
+    is above ``DIST_TOL`` of the leaf's largest (AdamW's first step is
+    about ``lr sign(g)`` whatever |g| is, so a gradient at float32's
+    rounding level can move by up to ``2 lr`` when its sum runs in another
+    order); with the worst element's gradients on both sides."""
+    out = {}
+    for k, ref in p_one.items():
+        d = (p[k].float() - ref.float()).abs().flatten()
+        den = float(ref.abs().max()) or 1.0
+        go = g_one[k].float().flatten()
+        live = go.abs() > DIST_TOL * float(go.abs().max())
+        i = int(d.argmax())
+        out[k] = {"err": float(d[i]) / den, "abs": float(d[i]),
+                  "err_live": float(d[live].max()) / den if live.any()
+                  else 0.0,
+                  "n_over_tol": int((d > DIST_TOL * den).sum()),
+                  "n": d.numel(),
+                  "worst_grad_one_card": float(go[i]),
+                  "worst_grad_mesh": float(g[k].float().flatten()[i]),
+                  "grad_max_one_card": float(go.abs().max())}
+    return out
+
+
+def _dist_serve(mesh, cfg, prompt, nxt) -> list:
+    """Prefill, then teacher-forced decode steps: every step's logits."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import pad_cache
+    B = prompt.shape[0]
+    pre = steps.make_prefill_step(cfg, mesh, global_batch=B)
+    dec = steps.make_decode_step(cfg, mesh, global_batch=B, model=pre.model)
+    dev = mesh.device
+    params = pre.model.init(torch.Generator(device=dev).manual_seed(SEED))
+    logits, cache = pre.step(params, {"tokens": torch.as_tensor(
+        prompt, device=dev)})
+    out = [logits]
+    cache = pad_cache(cache, nxt.shape[1])
+    for t in range(nxt.shape[1]):
+        pos = torch.full((B,), prompt.shape[1] + t, dtype=torch.int32,
+                         device=dev)
+        logits, cache = dec.step(params, {"token": torch.as_tensor(
+            nxt[:, t:t + 1], device=dev), "pos": pos}, cache)
+        out.append(logits)
+    return out
+
+
+def _rank_nccl(rank: int, world: int, root: str) -> dict:
+    """(a): on one card, the HostMesh run first, then the NCCL mesh of
+    ``world`` x 1 ranks from the same seed; at world 1 they must agree in
+    bits, losses, lp_s1 and every leaf."""
+    from repro_torch.launch.mesh import (init_process_group, make_host_mesh,
+                                         rank_device)
+    cfg = _dist_cfg("bfloat16")
+    dev = rank_device(None)
+    host = None
+    if world == 1:
+        host = _dist_train(make_host_mesh(1, 1, device=dev), cfg,
+                           DIST_NCCL_BATCH, DIST_NCCL_SEQ, keep=("final",))
+        free_card()
+    init_process_group(dev, backend="nccl")
+    mesh = make_host_mesh(world, 1, device=dev)
+    run = _dist_train(mesh, cfg, DIST_NCCL_BATCH, DIST_NCCL_SEQ,
+                      keep=("final",) if world == 1 else ())
+    res = {k: run[k] for k in ("loss", "lp_s1", "step_ms", "collectives",
+                               "launches", "peak_gb")}
+    res["backend"] = mesh.backend
+    if host is not None:
+        res["bits_equal_hostmesh"] = (
+            host["loss"] == run["loss"] and host["lp_s1"] == run["lp_s1"]
+            and all(torch.equal(host["final"][k], v)
+                    for k, v in run["final"].items()))
+        res["hostmesh_loss"] = host["loss"]
+    return res
+
+
+def _rank_gloo(rank: int, world: int, root: str) -> dict:
+    """(b) and (c): four gloo ranks on card 0."""
+    from repro_torch import dist as D
+    from repro_torch.core.lp import LPBatch
+    from repro_torch.core.seidel import solve_naive
+    from repro_torch.launch.mesh import (init_process_group, make_host_mesh,
+                                         rank_device)
+    from repro_torch.launch.steps import make_lp_step
+    restore = float32_exact()
+    dev = rank_device("cuda:0")
+    init_process_group(dev, backend="gloo")
+    mesh = make_host_mesh(2, 2, device=dev)
+    # gloo moves each CUDA payload through pinned host memory
+    res = {"backend": mesh.backend, "transport": mesh.backend}
+    runs, lps = {}, {}
+    for name, kw in (("tp_dp", {}), ("fsdp", {"fsdp": True})):
+        lps[name] = []
+        runs[name] = _dist_train(mesh, _dist_cfg("float32", **kw),
+                                 DIST_GLOO_BATCH, DIST_GLOO_SEQ,
+                                 lp_spy=lps[name])
+        if rank != 0:  # rank 0 holds them against the one-card steps
+            del runs[name]["params_1"]
+        free_card()
+    np.savez(os.path.join(root, f"lp_rank{rank}.npz"),
+             **{f"{n}_{i}_{j}": a for n, steps in lps.items()
+                for i, s in enumerate(steps) for j, a in enumerate(s)})
+    # (1, 4): the serving steps, tensor-parallel over the 4 ranks
+    rng = np.random.default_rng([SEED, 21])
+    cfg = _dist_cfg("float32")
+    prompt = rng.integers(0, cfg.vocab, (DIST_SERVE_BATCH,
+                                         DIST_SERVE_PROMPT), dtype=np.int32)
+    nxt = rng.integers(0, cfg.vocab, (DIST_SERVE_BATCH, DIST_SERVE_DECODE),
+                       dtype=np.int32)
+    tp = make_host_mesh(1, 4, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    D.reset_counts()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    served = _dist_serve(tp, cfg, prompt, nxt)
+    b.record()
+    torch.cuda.synchronize(dev)
+    res["serve"] = {"ms": a.elapsed_time(b), "collectives": D.counts(),
+                    "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    served = [x.cpu() for x in served]
+    free_card()
+    # (c): make_lp_step at the figure-3 batch over every rank
+    A, bb, c = feasible_arrays(np.random.default_rng([SEED, 22]),
+                               *PDHG_SHAPE)
+    batch = {"A": torch.as_tensor(A, dtype=torch.float32, device=dev),
+             "b": torch.as_tensor(bb, dtype=torch.float32, device=dev),
+             "c": torch.as_tensor(c, dtype=torch.float32, device=dev),
+             "m_valid": torch.full((PDHG_SHAPE[0],), PDHG_SHAPE[1],
+                                   dtype=torch.int32, device=dev)}
+    prog = make_lp_step(mesh, batch=PDHG_SHAPE[0], m=PDHG_SHAPE[1],
+                        method="naive")
+    torch.cuda.reset_peak_memory_stats(dev)
+    D.reset_counts()
+    a.record()
+    sol = prog.step(batch)
+    b.record()
+    torch.cuda.synchronize(dev)
+    res["lp_step"] = {"ms": a.elapsed_time(b), "collectives": D.counts(),
+                      "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    for name, run in runs.items():
+        res[name] = {k: run[k] for k in ("loss", "lp_s1", "step_ms",
+                                         "collectives", "launches",
+                                         "peak_gb")}
+    D.barrier(mesh)
+    if rank == 0:
+        # the one-card float32 references, on rank 0 while the others wait
+        from repro_torch.launch.mesh import HostMesh
+        one_mesh = HostMesh(device=dev)
+        for name, kw in (("tp_dp", {}), ("fsdp", {"fsdp": True})):
+            one = _dist_train(one_mesh, _dist_cfg("float32", **kw),
+                              DIST_GLOO_BATCH, DIST_GLOO_SEQ)
+            r = runs[name]
+            res[name]["one_card_loss"] = one["loss"]
+            res[name]["one_card_lp_s1"] = one["lp_s1"]
+            res[name]["loss_rel_err"] = max(
+                abs(x - y) / abs(y) for x, y in zip(r["loss"], one["loss"]))
+            res[name]["lp_s1_err"] = max(
+                abs(x - y) for x, y in zip(r["lp_s1"], one["lp_s1"]))
+            grad_err = _leaf_err(r["grads_1"], one["grads_1"])
+            step1 = _step1_err(r["params_1"], one["params_1"],
+                               r["grads_1"], one["grads_1"])
+            res[name]["grad_err_step1"] = max(grad_err.values())
+            res[name]["leaf_err_step1"] = max(v["err"] for v in
+                                              step1.values())
+            res[name]["leaf_err_step1_live"] = max(v["err_live"] for v in
+                                                   step1.values())
+            res[name]["leaf_abs_step1"] = max(v["abs"] for v in
+                                              step1.values())
+            res[name]["by_leaf"] = {k: {"grad_err": grad_err[k], **v}
+                                    for k, v in step1.items()}
+            del one
+            free_card()
+        ref = _dist_serve(HostMesh(device=dev), cfg, prompt, nxt)
+        res["serve"]["logit_err"] = max(
+            float((x[:, :cfg.vocab] - y.cpu()[:, :cfg.vocab]).abs().max())
+            / float(y[:, :cfg.vocab].abs().max())
+            for x, y in zip(served, ref))
+        one = solve_naive(LPBatch(**batch))
+        res["lp_step"]["bits_equal_one_rank"] = bool(
+            torch.equal(one.x, sol["x"])
+            and torch.equal(one.feasible, sol["feasible"]))
+    runs.clear()
+    D.barrier(mesh)
+    restore()
+    return res
+
+
+def dist_rank_main(argv) -> int:
+    """A child process: one rank of ``argv[0]`` ("nccl" | "gloo")."""
+    scenario, root = argv[0], argv[1]
+    rank = int(os.environ["RANK"])
+    world = int(os.environ["WORLD_SIZE"])
+    fn = {"nccl": _rank_nccl, "gloo": _rank_gloo}[scenario]
+    res = fn(rank, world, root)
+    res["rank"] = rank
+    with open(os.path.join(root, f"{scenario}_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    import torch.distributed as tdist
+    tdist.destroy_process_group()
+    return 0
+
+
+def spawn_ranks(scenario: str, world: int, root: str) -> list:
+    """Start ``world`` ranks of ``scenario`` and wait for every one; a
+    failed rank fails the phase (and every rank is stopped)."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+               WORLD_SIZE=str(world))
+    logs = [os.path.join(root, f"{scenario}_rank{r}.log")
+            for r in range(world)]
+    procs = []
+    for r in range(world):
+        with open(logs[r], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dist-rank",
+                 scenario, root],
+                env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+                stdout=log, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    for r in bad:
+        with open(logs[r]) as f:
+            sys.stderr.write(f"--- rank {r} ---\n" + f.read()[-6000:])
+    check(not bad, f"dist {scenario}: ranks {bad} failed")
+    out = []
+    for r in range(world):
+        with open(os.path.join(root, f"{scenario}_rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def phase_dist(device, card: str) -> tuple:
+    """(a) NCCL at device_count ranks, (b) + (c) four gloo ranks on card 0.
+    Every line is printed, then any failed check fails the phase.  Returns
+    rank 0's LP batch of the first 2x2 step, its rgb_cuda launches and the
+    phase's seconds."""
+    import tempfile
+    t0 = time.perf_counter()
+    free_card()
+    lines, failed = [], []
+
+    def hold(cond: bool, msg: str) -> None:
+        if not cond:
+            failed.append(msg)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as root:
+        world = torch.cuda.device_count()
+        nccl = spawn_ranks("nccl", world, root)
+        r0 = nccl[0]
+        hold(all(r["launches"] == DIST_STEPS for r in nccl),
+             f"dist nccl: rgb_cuda launches {[r['launches'] for r in nccl]},"
+             f" not one a step")
+        if world == 1:
+            hold(r0["bits_equal_hostmesh"], "dist nccl: the 1x1 NCCL mesh "
+                 "differs in bits from the HostMesh step")
+        lines.append({"phase": "dist", "run": "nccl", "arch": DIST_ARCH,
+                      "dtype": "bfloat16", "world": world,
+                      "mesh": [world, 1], "backend": r0["backend"],
+                      "transport": r0["backend"],
+                      "ranks_share_one_card": False,
+                      "batch": DIST_NCCL_BATCH, "seq": DIST_NCCL_SEQ,
+                      "loss": r0["loss"], "lp_s1": r0["lp_s1"],
+                      "hostmesh_loss": r0.get("hostmesh_loss"),
+                      "bits_equal_hostmesh": r0.get("bits_equal_hostmesh"),
+                      "step_ms": [r["step_ms"] for r in nccl],
+                      "peak_gb": [r["peak_gb"] for r in nccl],
+                      "collectives_per_step": r0["collectives"],
+                      "rgb_cuda_launches": [r["launches"] for r in nccl]})
+        gloo = spawn_ranks("gloo", DIST_GLOO_WORLD, root)
+        g0 = gloo[0]
+        lps = [np.load(os.path.join(root, f"lp_rank{r}.npz"))
+               for r in range(DIST_GLOO_WORLD)]
+        lp_equal = all(sorted(f.files) == sorted(lps[0].files) and all(
+            f[k].tobytes() == lps[0][k].tobytes() for k in f.files)
+            for f in lps[1:])
+        hold(lp_equal, "dist gloo: the ranks' LP batches differ in bits")
+        lp_batch = tuple(lps[0][f"tp_dp_0_{j}"] for j in range(3))
+        for name in ("tp_dp", "fsdp"):
+            g = g0[name]
+            hold(all(r[name]["launches"] == DIST_STEPS for r in gloo),
+                 f"dist {name}: rgb_cuda not launched once a step a rank")
+            hold(all(r[name]["lp_s1"] == g["lp_s1"] for r in gloo),
+                 f"dist {name}: lp_s1 differs between ranks")
+            # step 1's gradients and the leaves after it where the gradient
+            # is above rounding; any element at most AdamW's 2 lr
+            hold(g["loss_rel_err"] <= DIST_TOL and g["lp_s1_err"] <= DIST_TOL
+                 and g["grad_err_step1"] <= DIST_TOL
+                 and g["leaf_err_step1_live"] <= DIST_TOL
+                 and g["leaf_abs_step1"] <= 2 * DIST_LR,
+                 f"dist {name}: off the one-card float32 steps")
+            lines.append({
+                "phase": "dist", "run": name, "arch": DIST_ARCH,
+                "dtype": "float32", "world": DIST_GLOO_WORLD,
+                "mesh": [2, 2], "fsdp": name == "fsdp",
+                "backend": g0["backend"], "transport": g0["transport"],
+                "ranks_share_one_card": True, "batch": DIST_GLOO_BATCH,
+                "seq": DIST_GLOO_SEQ, "loss": g["loss"], "lp_s1": g["lp_s1"],
+                "one_card_loss": g["one_card_loss"],
+                "loss_rel_err": g["loss_rel_err"],
+                "lp_s1_err": g["lp_s1_err"], "tol": DIST_TOL,
+                "grad_err_step1": g["grad_err_step1"],
+                "leaf_err_step1": g["leaf_err_step1"],
+                "leaf_err_step1_live": g["leaf_err_step1_live"],
+                "leaf_abs_step1": g["leaf_abs_step1"],
+                "by_leaf": g["by_leaf"],
+                "lp_batch_bits_equal_across_ranks": lp_equal,
+                "step_ms": [r[name]["step_ms"] for r in gloo],
+                "peak_gb": [r[name]["peak_gb"] for r in gloo],
+                "collectives_per_step": g["collectives"],
+                "rgb_cuda_launches": [r[name]["launches"] for r in gloo]})
+        s = g0["serve"]
+        hold(s["logit_err"] <= DIST_SERVE_TOL,
+             f"dist serve: (1, 4) logits {s['logit_err']} off one card")
+        lines.append({"phase": "dist", "run": "serve", "arch": DIST_ARCH,
+                      "dtype": "float32", "world": DIST_GLOO_WORLD,
+                      "mesh": [1, 4], "backend": g0["backend"],
+                      "transport": g0["transport"],
+                      "ranks_share_one_card": True,
+                      "batch": DIST_SERVE_BATCH, "prompt": DIST_SERVE_PROMPT,
+                      "decode_steps": DIST_SERVE_DECODE,
+                      "logit_err": s["logit_err"], "tol": DIST_SERVE_TOL,
+                      "ms": [r["serve"]["ms"] for r in gloo],
+                      "peak_gb": [r["serve"]["peak_gb"] for r in gloo],
+                      "collectives": s["collectives"]})
+        lp = g0["lp_step"]
+        hold(lp["bits_equal_one_rank"],
+             "dist lp_step: the 2x2 solve differs in bits from one rank's")
+        lines.append({"phase": "dist", "run": "lp_step", "method": "naive",
+                      "B": PDHG_SHAPE[0], "m": PDHG_SHAPE[1],
+                      "world": DIST_GLOO_WORLD, "mesh": [2, 2],
+                      "backend": g0["backend"], "transport": g0["transport"],
+                      "ranks_share_one_card": True,
+                      "bits_equal_one_rank": lp["bits_equal_one_rank"],
+                      "ms": [r["lp_step"]["ms"] for r in gloo],
+                      "peak_gb": [r["lp_step"]["peak_gb"] for r in gloo],
+                      "collectives": lp["collectives"]})
+    seconds = time.perf_counter() - t0
+    for line in lines:
+        emit({**line, "card": card})
+    emit({"phase": "dist", "run": "done", "seconds": seconds, "card": card})
+    check(not failed, "; ".join(failed))
+    return lp_batch, g0["tp_dp"]["launches"], seconds
+
 def main() -> int:
+    if len(sys.argv) > 2 and sys.argv[1] == "--dist-rank":
+        return dist_rank_main(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script "
               "measures the port on the card and does not run without "
@@ -2012,7 +2512,7 @@ def main() -> int:
         entries = phase_kernels(device, card)
         rgb_cuda.launches = 0
         phase_solver(device, card, entries)
-        serve = phase_serve(default_devices()[:1], card)
+        serve = phase_serve(default_devices(), card)
         phase_pdhg(device, card)
         phase_tune(device, card)
         rpc = phase_rpc(default_devices()[:1], card)
@@ -2022,6 +2522,7 @@ def main() -> int:
         train, lp_batch = phase_train(device, card)
         train_ssm, lp_batch_ssm = phase_train_ssm(device, card)
         phase_lm_serve(device, card)
+        dist_lp, dist_launches, _ = phase_dist(device, card)
         # Launches made from here on compare and time; the counts of the
         # main path have been read.
         entries.append(phase_train_kernel(device, card, lp_batch,
@@ -2029,6 +2530,8 @@ def main() -> int:
         entries.append(phase_train_kernel(device, card, lp_batch_ssm,
                                           train_ssm["launches"],
                                           path="train-mamba2"))
+        entries.append(phase_train_kernel(device, card, dist_lp,
+                                          dist_launches, path="dist"))
         entries += phase_serve_kernels(device, card, serve["exec_specs"])
         entries += phase_serve_kernels(device, card, rpc["exec_specs"],
                                        path="rpc")

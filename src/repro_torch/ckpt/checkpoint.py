@@ -22,6 +22,12 @@ A checkpoint written by either package loads in the other:
   card), then returns; a daemon thread writes them.  wait() joins (called
   before the next save).
 * garbage collection keeps the newest ``keep`` step directories.
+* **on a mesh** (``mesh=`` and ``specs=``: slash path -> the spec of each
+  sharded leaf) every leaf is saved whole: the shards are gathered over
+  the axes that shard them and rank 0 writes.  ``load`` with a mesh cuts
+  each rank's shard out of the whole leaf under *that* mesh's specs, so a
+  checkpoint saved on one mesh restores onto another (the reference's
+  elastic reshard), and on one card as it always did.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import dist as D
 from repro_torch.tree import flatten_with_paths, unflatten_with_paths
 
 # torch dtype -> the numpy dtype name the reference writes in manifests.
@@ -86,11 +93,23 @@ class Checkpointer:
     # -- save ---------------------------------------------------------------
 
     def save(self, step: int, params, extra: Optional[Dict] = None,
-             blocking: bool = False) -> None:
+             blocking: bool = False, *, mesh=None,
+             specs: Optional[Dict[str, tuple]] = None) -> None:
         """Snapshot (the device->host copy happens HERE, synchronously);
-        disk IO happens on the daemon thread unless blocking=True."""
+        disk IO happens on the daemon thread unless blocking=True.  On a
+        mesh every rank calls this (the gathers are collectives); rank 0
+        writes, and a blocking save returns on every rank once the files
+        are in place."""
         self.wait()
         flat = flatten_with_paths(params)
+        if mesh is not None:
+            specs = specs or {}
+            flat = {k: (D.gather_leaf(v, specs[k], mesh) if k in specs
+                        else v) for k, v in flat.items()}
+            if mesh.rank != 0:
+                if blocking:
+                    D.barrier(mesh)
+                return
         copies = {k: _host_copy(v) for k, v in flat.items()}
         if any(v.device.type == "cuda" for v in flat.values()):
             torch.cuda.synchronize()
@@ -105,6 +124,7 @@ class Checkpointer:
 
         if blocking:
             work()
+            D.barrier(mesh)
         else:
             self._thread = threading.Thread(target=work, daemon=True)
             self._thread.start()
@@ -150,11 +170,13 @@ class Checkpointer:
             return None
         return int(name.split("_")[1])
 
-    def load(self, like, step: Optional[int] = None) -> Tuple[Any, Dict]:
+    def load(self, like, step: Optional[int] = None, *, mesh=None,
+             specs: Optional[Dict[str, tuple]] = None) -> Tuple[Any, Dict]:
         """Restore into the structure of ``like`` (a tree of tensors, or
         of ``device="meta"`` stand-ins): each leaf takes the dtype of its
         ``like`` leaf and lies on its device (the CPU for a meta leaf).
-        Returns ``(tree, extra)``."""
+        On a mesh, a leaf that ``specs`` names is cut to this rank's
+        shard under that spec.  Returns ``(tree, extra)``."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -165,6 +187,8 @@ class Checkpointer:
         for k, ref in flatten_with_paths(like).items():
             arr = np.load(d / (k.replace("/", "__") + ".npy"))
             t = _from_host(arr, meta["leaves"][k]["dtype"])
+            if mesh is not None and specs and k in specs:
+                t = D.shard_of(t, specs[k], mesh)
             dev = ref.device if ref.device.type != "meta" else "cpu"
             out[k] = t.to(device=dev, dtype=ref.dtype)
         return unflatten_with_paths(out, like), meta["extra"]

@@ -1,5 +1,7 @@
-"""Batched serving entry point, on one card: continuous prefill + decode over
-a request queue (the inference-side end-to-end example).
+"""Batched serving entry point: continuous prefill + decode over a request
+queue (the inference-side end-to-end example), on one card or, launched
+with several ranks (``torchrun``), on the reference's ``(ranks, 1)`` mesh:
+each rank serves its rows of every batch and rank 0 prints.
 
 Counterpart of ``repro.launch.serve`` with its flags and log lines: each
 batch of prompts is prefilled at once, its KV cache grown to the whole
@@ -34,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 from typing import Callable, List
 
@@ -43,7 +46,8 @@ import torch
 from repro_torch.configs import ARCHS, smoke_config
 from repro_torch.device import DeviceLike
 from repro_torch.launch import steps as steps_mod
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import (HostMesh, init_process_group,
+                                     make_host_mesh)
 from repro_torch.tree import tree_leaves
 
 
@@ -198,7 +202,13 @@ def main(argv=None, *, device: DeviceLike = None) -> ServeRun:
     cfg = ARCHS[args.arch]
     if args.smoke:
         cfg = smoke_config(cfg)
-    mesh = make_host_mesh(1, 1, device=device)
+    import torch.distributed as tdist
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        device = init_process_group(device)
+    world = tdist.get_world_size() if tdist.is_initialized() else 1
+    mesh = make_host_mesh(world, 1, device=device)
+    log = print if isinstance(mesh, HostMesh) or mesh.rank == 0 else (
+        lambda *a, **k: None)
     B = args.batch
 
     prefill = steps_mod.make_prefill_step(cfg, mesh, global_batch=B)
@@ -213,9 +223,9 @@ def main(argv=None, *, device: DeviceLike = None) -> ServeRun:
     run = serve(model, params, prompts, gen=args.gen,
                 prefill=prefill.jit(), decode=decode.jit())
     for b, gen in enumerate(run.tokens):
-        print(f"[serve] batch {b}: generated {gen.shape} tokens; "
-              f"sample row: {gen[0][:8]}")
-    print(f"[serve] {run.n_tokens} tokens in {run.seconds:.2f}s "
+        log(f"[serve] batch {b}: generated {gen.shape} tokens; "
+            f"sample row: {gen[0][:8]}")
+    log(f"[serve] {run.n_tokens} tokens in {run.seconds:.2f}s "
           f"({run.n_tokens / run.seconds:.1f} tok/s)")
     return run
 

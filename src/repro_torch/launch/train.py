@@ -1,4 +1,4 @@
-"""The training entry point, on one card.
+"""The training entry point, on one card or on a mesh of ranks.
 
 Counterpart of ``repro.launch.train`` with its flags and log lines.
 Composes: config registry, data pipeline, the train step, AdamW (+
@@ -9,13 +9,22 @@ with resume, heartbeat + straggler monitoring.
     python -m repro_torch.launch.train --arch qwen2-0.5b --lp-clip \\
         --steps 20 --batch 8 --seq 512 --ckpt-dir /tmp/ckpt
 
-It runs on the card (``--mesh 1,1``, the default and the one mesh the
-port has); ``main(argv, device="cpu")`` runs it on the CPU, as the tests
-do.  ``--production-mesh`` and larger meshes raise (ROADMAP A9g).
+It runs on the card; ``main(argv, device="cpu")`` runs it on the CPU, as
+the tests do.  Under ``torchrun`` (or in a process whose process group is
+initialised) it trains on a ``(data, model)`` mesh of the ranks:
+``--mesh d,m`` (default: every rank on the data axis, as the reference's
+default), ``--production-mesh`` (16x16; ``--multi-pod`` 2x16x16).  Each
+rank runs on card ``LOCAL_RANK % device_count`` with NCCL (gloo on the
+CPU); logging, checkpoints and the heartbeat are rank 0's, and a
+checkpoint holds whole leaves, so it resumes on any mesh::
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch qwen2-0.5b --mesh 2,2 --lp-clip --steps 20
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
@@ -26,9 +35,25 @@ from repro_torch.data.pipeline import TokenSource, for_model
 from repro_torch.device import DeviceLike
 from repro_torch.launch import steps as steps_mod
 from repro_torch.launch.elastic import Heartbeat, StragglerMonitor
-from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+from repro_torch.dist import flat_specs
+from repro_torch.launch.mesh import (HostMesh, init_process_group,
+                                     make_host_mesh, make_production_mesh)
 from repro_torch.optim import AdamW
 from repro_torch.tree import copy_into_
+
+
+def state_specs(model) -> dict:
+    """The specs of the sharded leaves of ``(params, AdamWState)`` by the
+    checkpoint's slash paths: the parameters and both moments."""
+    out = {}
+    for path, spec in flat_specs(model.full_param_specs()).items():
+        for prefix in ("0", "1/1", "1/2"):
+            out[f"{prefix}/{path}"] = spec
+    return out
+
+
+def _launched_with_ranks() -> bool:
+    return int(os.environ.get("WORLD_SIZE", "1")) > 1
 
 
 def main(argv=None, *, device: DeviceLike = None):
@@ -47,8 +72,8 @@ def main(argv=None, *, device: DeviceLike = None):
     ap.add_argument("--data-path", default=None)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
-    ap.add_argument("--mesh", default="1,1",
-                    help="data,model (one card: 1,1)")
+    ap.add_argument("--mesh", default=None,
+                    help="data,model (default: every rank as data)")
     ap.add_argument("--production-mesh", action="store_true")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--heartbeat", default=None)
@@ -60,12 +85,20 @@ def main(argv=None, *, device: DeviceLike = None):
     if args.smoke:
         cfg = smoke_config(cfg)
 
+    import torch.distributed as tdist
+    if args.production_mesh or _launched_with_ranks():
+        device = init_process_group(device)
+    world = tdist.get_world_size() if tdist.is_initialized() else 1
     if args.production_mesh:
-        mesh = make_production_mesh(multi_pod=args.multi_pod)
-    else:
+        mesh = make_production_mesh(multi_pod=args.multi_pod, device=device)
+    elif args.mesh:
         d, m = (int(x) for x in args.mesh.split(","))
         mesh = make_host_mesh(d, m, device=device)
+    else:
+        mesh = make_host_mesh(world, 1, device=device)
     dev = mesh.device
+    lead = isinstance(mesh, HostMesh) or mesh.rank == 0
+    log = print if lead else (lambda *a, **k: None)
 
     optimizer = AdamW(lr=args.lr)
     prog = steps_mod.make_train_step(
@@ -84,13 +117,16 @@ def main(argv=None, *, device: DeviceLike = None):
 
     start = 0
     ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
+    sharded = ({} if isinstance(mesh, HostMesh)
+               else {"mesh": mesh, "specs": state_specs(prog.model)})
     if ckpt is not None and ckpt.latest_step() is not None:
-        (loaded, opt_state), meta = ckpt.load((params, opt_state))
+        (loaded, opt_state), meta = ckpt.load((params, opt_state),
+                                              **sharded)
         copy_into_(params, loaded)
         start = int(meta.get("next_step", 0))
-        print(f"[train] resumed from step {start}")
+        log(f"[train] resumed from step {start}")
 
-    hb = Heartbeat(args.heartbeat) if args.heartbeat else None
+    hb = Heartbeat(args.heartbeat) if args.heartbeat and lead else None
     strag = StragglerMonitor()
     act = getattr(torch, cfg.dtype)
 
@@ -111,7 +147,7 @@ def main(argv=None, *, device: DeviceLike = None):
         if step % args.log_every == 0 or step == args.steps - 1:
             loss = float(metrics["loss"])
             s1 = float(metrics["lp_s1"])
-            print(f"[train] step {step:6d} loss {loss:8.4f} "
+            log(f"[train] step {step:6d} loss {loss:8.4f} "
                   f"dt {dt*1e3:8.1f}ms lp_s1 {s1:.3f}"
                   + ("  STRAGGLER" if slow else ""), flush=True)
         # (the last step's state is saved once, below; the reference
@@ -119,11 +155,11 @@ def main(argv=None, *, device: DeviceLike = None):
         if (ckpt is not None and (step + 1) % args.ckpt_every == 0
                 and step + 1 < args.steps):
             ckpt.save(step + 1, (params, opt_state),
-                      extra={"next_step": step + 1})
+                      extra={"next_step": step + 1}, **sharded)
     if ckpt is not None:
         ckpt.save(args.steps, (params, opt_state),
-                  extra={"next_step": args.steps}, blocking=True)
-    print(f"[train] done; median step {strag.median*1e3:.1f}ms, "
+                  extra={"next_step": args.steps}, blocking=True, **sharded)
+    log(f"[train] done; median step {strag.median*1e3:.1f}ms, "
           f"{len(strag.flagged)} straggler steps")
     return float(metrics["loss"])
 

@@ -15,7 +15,7 @@ scheme for archs whose head counts don't divide the TP degree (DESIGN.md):
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,6 +138,9 @@ class MeshInfo:
     model_size: int = 1
     data_size: int = 1  # product over data_axes (incl. pod)
     bound: bool = False
+    # the port's launch.mesh.DistMesh whose process groups the collectives
+    # use; None on one device
+    mesh: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     @property
     def all_axes(self) -> Tuple[str, ...]:

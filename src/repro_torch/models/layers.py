@@ -1,14 +1,18 @@
 """Model layers of every family, in PyTorch: the reference's math.
 
 Counterpart of ``repro.models.layers`` for the dense, MoE, VLM,
-encoder-decoder, SSM and hybrid families on one card, in training and in
-serving (``attn_layer`` and ``mamba2_layer`` in
-``mode="prefill"|"decode"`` with their ``AttnCache`` / ``SSMCache``,
-``decode_attention``, ``ssd_decode_step``, ``lm_head_logits``).  The reference writes each
-function to run inside ``shard_map`` with explicit collectives over the
-``model`` axis; here the collective helpers are the identity at
-``model_size == 1`` and raise for a larger model axis (multi-card training
-is a later slice, ROADMAP A9g).  Every function is plain PyTorch, as the
+encoder-decoder, SSM and hybrid families, in training and in serving
+(``attn_layer`` and ``mamba2_layer`` in ``mode="prefill"|"decode"`` with
+their ``AttnCache`` / ``SSMCache``, ``decode_attention``,
+``ssd_decode_step``, ``lm_head_logits``).  As in the reference, each
+function is per-rank code: inputs are this rank's shards, and the
+tensor-parallel reductions over the ``model`` axis and the FSDP gathers
+over the data axes are explicit, through :mod:`repro_torch.dist` on the
+mesh that ``MeshInfo.mesh`` names (the identity on one device).  Where a
+model-replicated activation enters model-sharded weights, ``copy_model``
+(identity forward, all-reduce backward) is placed before it, so every
+replicated tensor holds its full gradient on every rank (see
+:mod:`repro_torch.dist`).  Every function is plain PyTorch, as the
 reference is plain ``jnp``: no kernel sits behind any of them
 (``flash_attention`` is the reference's chunked online softmax in torch
 ops, not ``scaled_dot_product_attention``; ``moe_layer`` is the
@@ -30,51 +34,73 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import dist as D
 from repro_torch.models.common import HeadLayout, MeshInfo, ModelConfig
 
 Params = Dict[str, Any]
 
-_MULTI_CARD = ("a model axis larger than 1 needs tensor parallelism over "
-               "torch.distributed, which the port does not have yet "
-               "(ROADMAP A9g: multi-card training)")
-
 
 # ---------------------------------------------------------------------------
-# Collective helpers (one card)
+# Collective helpers
 # ---------------------------------------------------------------------------
 
-def _one_card(mi: MeshInfo) -> None:
-    if mi.model_size > 1:
-        raise NotImplementedError(_MULTI_CARD)
-
-
-def _one_data_shard(mi: MeshInfo) -> None:
-    if mi.data_size > 1:
-        raise NotImplementedError(
-            "a data axis larger than 1 is not ported yet (ROADMAP A9g: "
-            "multi-card training)")
+def _mesh(mi: MeshInfo, axis_size: int):
+    """The mesh whose groups a collective over an axis of ``axis_size``
+    ranks uses; ``None`` (the identity) for one rank."""
+    if axis_size <= 1:
+        return None
+    if mi.mesh is None:
+        raise ValueError(
+            f"an axis of {axis_size} ranks needs the mesh's process groups: "
+            f"build the MeshInfo with launch.mesh.mesh_info(DistMesh)")
+    return mi.mesh
 
 
 def psum_model(x, mi: MeshInfo):
-    _one_card(mi)
-    return x
+    """Sum over the model axis (a row-parallel product's reduction)."""
+    mesh = _mesh(mi, mi.model_size)
+    return x if mesh is None else D.psum(x, mesh, (mi.model_axis,))
+
+
+def copy_model(x, mi: MeshInfo):
+    """A model-replicated tensor entering model-sharded work: the
+    identity, whose gradient is summed over the model axis."""
+    mesh = _mesh(mi, mi.model_size)
+    return x if mesh is None else D.copy_to(x, mesh, (mi.model_axis,))
 
 
 def pmax_model(x, mi: MeshInfo):
-    _one_card(mi)
-    return x
+    mesh = _mesh(mi, mi.model_size)
+    return x if mesh is None else D.pmax(x, mesh, (mi.model_axis,))
 
 
 def model_rank(mi: MeshInfo) -> int:
-    _one_card(mi)
-    return 0
+    mesh = _mesh(mi, mi.model_size)
+    return 0 if mesh is None else mesh.index((mi.model_axis,))
+
+
+def pvary_init(x, mi: MeshInfo):
+    """The identity.  The reference marks fresh scan carries as
+    device-varying for ``shard_map``'s replication tracking; PyTorch tracks
+    no replication, so there is nothing to mark."""
+    return x
 
 
 def gather_fsdp(p: Params, plan, mi: MeshInfo) -> Params:
-    """The identity: with one data shard every leaf is whole.  FSDP over
-    several cards is a later slice (ROADMAP A9g)."""
-    _one_data_shard(mi)
-    return p
+    """All-gather FSDP-sharded leaves along their sharded dim, over every
+    data axis (pod, then data: one group, row-major over the axes, as the
+    reference's successive tiled gathers lay them out).  ``plan`` mirrors
+    ``p``: -1 (replicated over data) or the dim sharded over the data
+    axes.  The gather's backward is a reduce-scatter: ZeRO's gradient."""
+    mesh = _mesh(mi, mi.data_size)
+    if mesh is None:
+        return p
+    out = {}
+    for k, v in p.items():
+        dim = plan.get(k, -1)
+        out[k] = v if dim is None or dim < 0 else D.all_gather(
+            v, mesh, mi.data_axes, dim)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -90,11 +116,16 @@ def rms_norm(x, scale, eps: float):
 
 def rms_norm_sharded(x, scale, eps: float, mi: MeshInfo, full_width: int):
     """RMSNorm over a width-sharded activation: the sum of squares is
-    reduced over the model axis and divided by the full width (one
-    shard here, so ``full_width`` is the width of ``x``)."""
+    reduced over the model axis and divided by the full width (on one
+    rank, the width of ``x``)."""
     dt = x.dtype
     x32 = x.float()
-    ssq = psum_model(torch.sum(x32 * x32, dim=-1, keepdim=True), mi)
+    ssq = torch.sum(x32 * x32, dim=-1, keepdim=True)
+    mesh = _mesh(mi, mi.model_size)
+    if mesh is not None:
+        # every rank's shard goes on to use the reduced sum: its gradient
+        # is summed too
+        ssq = D.psum_all(ssq, mesh, (mi.model_axis,))
     var = ssq / full_width
     return (x32 * torch.rsqrt(var + eps)).to(dt) * scale
 
@@ -300,6 +331,7 @@ def attn_layer(
         raise ValueError(f"attn_layer mode={mode!r}")
     B, S, _ = x.shape
     hd = cfg.hd
+    x = copy_model(x, mi)
     q, k, v = attn_project_qkv(p, x, layout, qkv_bias=cfg.qkv_bias)
     if kv_override is not None:
         k, v = kv_override
@@ -349,6 +381,7 @@ def mlp_glu(p: Params, x, mi: MeshInfo, *, gelu: bool = False,
     """SwiGLU / GeGLU (``cfg.gelu_glu``).  ``psum=False`` returns the
     partial (pre-reduction) output so the caller can fuse several
     row-parallel reductions into one."""
+    x = copy_model(x, mi)
     g = x @ p["w_gate"]
     u = x @ p["w_up"]
     act = F.gelu(g, approximate="tanh") if gelu else silu(g)
@@ -358,6 +391,7 @@ def mlp_glu(p: Params, x, mi: MeshInfo, *, gelu: bool = False,
 
 def mlp_plain(p: Params, x, mi: MeshInfo):
     """fc1 -> gelu -> fc2 (whisper-style)."""
+    x = copy_model(x, mi)
     h = F.gelu(x @ p["w_fc1"] + p["b_fc1"], approximate="tanh")
     return psum_model(h @ p["w_fc2"], mi) + p["b_fc2"]
 
@@ -410,7 +444,10 @@ def moe_layer(
 
     e_start = model_rank(mi) * E_local
     flat_e = top_idx.reshape(N * k)
-    flat_w = top_vals.reshape(N * k).to(x.dtype)
+    # the router is replicated; the combine weights and the tokens feed
+    # this rank's experts only, so their gradients are summed over ranks
+    flat_w = copy_model(top_vals, mi).reshape(N * k).to(x.dtype)
+    xe = copy_model(xf, mi)
     flat_tok = torch.arange(N, device=dev)[:, None].expand(N, k).reshape(-1)
 
     local_e = flat_e - e_start
@@ -434,7 +471,7 @@ def moe_layer(
     # kept slots are distinct; dropped entries land in a spare last row
     dump = E_local * C
     xb = x.new_zeros((dump + 1, d)).index_put(
-        (torch.where(keep, slot, dump),), xf[s_tok])
+        (torch.where(keep, slot, dump),), xe[s_tok])
     xb = xb[:dump].reshape(E_local, C, d)
 
     g = torch.bmm(xb, p["w_gate"])
@@ -451,8 +488,11 @@ def moe_layer(
         y = psum_model(y, mi)
 
     aux = _load_balance_loss(probs, top_idx, E)
-    # the reference averages aux over data shards: one shard here
-    _one_data_shard(mi)
+    # mean over data shards, as the reference's; each shard's loss then
+    # uses the mean, so its gradient is summed over them too
+    mesh = _mesh(mi, mi.data_size)
+    if mesh is not None:
+        aux = D.psum_all(aux, mesh, mi.data_axes) / mi.data_size
     return y.reshape(B, S, d), aux
 
 
@@ -598,11 +638,13 @@ def mamba2_layer(
     di_l = p["w_x"].shape[1]
     H_l = di_l // P
 
-    z = x @ p["w_z"]
-    xs = x @ p["w_x"]
+    # w_B / w_C are replicated; the rest of the block is head-sharded
+    xm = copy_model(x, mi)
+    z = xm @ p["w_z"]
+    xs = xm @ p["w_x"]
     Bc = x @ p["w_B"]
     Cc = x @ p["w_C"]
-    dt = _softplus((x @ p["w_dt"]).float() + p["dt_bias"].float())
+    dt = _softplus((xm @ p["w_dt"]).float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())  # (H_l,)
 
     if mode == "decode":
@@ -629,7 +671,8 @@ def mamba2_layer(
         Cc, _ = _causal_conv(Cc, p["conv_C"])
         xs, Bc, Cc = silu(xs), silu(Bc), silu(Cc)
         xs_h = xs.reshape(B, S, H_l, P)
-        y, state = ssd_chunked(xs_h, dt, A, Bc, Cc, cfg.ssm_chunk)
+        y, state = ssd_chunked(xs_h, dt, A, copy_model(Bc, mi),
+                               copy_model(Cc, mi), cfg.ssm_chunk)
         y = y + xs_h * p["D"][None, None, :, None]
         y = y.reshape(B, S, di_l)
         new_cache = None
@@ -648,7 +691,7 @@ def mamba2_layer(
 
 
 # ---------------------------------------------------------------------------
-# Vocab-sharded embedding / loss (one shard here)
+# Vocab-sharded embedding / loss
 # ---------------------------------------------------------------------------
 
 def embed_lookup(table, ids, mi: MeshInfo):
@@ -672,7 +715,7 @@ def lm_head_loss(h, table, labels, mi: MeshInfo, *, vocab_real: int):
     V_local = table.shape[0]
     r = model_rank(mi)
     dev = h.device
-    hf = h.reshape(B * S, d)
+    hf = copy_model(h, mi).reshape(B * S, d)
     logits = (hf @ table.T).float()  # (N, V_local)
     gid = r * V_local + torch.arange(V_local, device=dev)
     logits = torch.where((gid < vocab_real)[None, :], logits, NEG_INF)
@@ -702,7 +745,9 @@ def lm_head_loss(h, table, labels, mi: MeshInfo, *, vocab_real: int):
 def lm_head_logits(h, table, mi: MeshInfo, *, vocab_real: int):
     """Full logits for serving, float32, the padded vocabulary's columns
     set to ``NEG_INF``.  h (B, S, d) -> (B, S, V_pad)."""
-    _one_card(mi)  # the reference all-gathers vocab shards beyond one
     logits = torch.einsum("bsd,vd->bsv", h, table).float()
+    mesh = _mesh(mi, mi.model_size)
+    if mesh is not None:
+        logits = D.all_gather(logits, mesh, (mi.model_axis,), dim=-1)
     gid = torch.arange(logits.shape[-1], device=h.device)
     return torch.where((gid < vocab_real)[None, None, :], logits, NEG_INF)

@@ -3,7 +3,7 @@ decoder LM (``dense``, ``moe``, ``vlm``), the encoder-decoder
 (``encdec``), the Mamba2 LM (``ssm``) and the hybrid (``hybrid``: Mamba2
 layers and one shared attention block).
 
-Counterpart of ``repro.models.transformer`` on one card.  Each model holds
+Counterpart of ``repro.models.transformer``.  Each model holds
 one ``nn.Parameter`` per leaf of the reference's parameter tree, under the
 reference's names and in its **stacked** layout: ``DecoderLM`` has
 ``emb``, ``lm_head``, ``final_norm``, ``blocks/{wq,wk,wv,wo,bq,bk,bv,ln1,
@@ -16,6 +16,16 @@ conv_x,conv_B,conv_C,norm,w_out}``, and ``HybridLM`` adds the unstacked
 ``shared/...`` block.  Each block leaf is shaped ``(n_layers, ...)``;
 ``A_log`` and ``dt_bias`` are float32 whatever the model's dtype, as in
 the reference.
+
+On a mesh (``mi.mesh`` a :class:`~repro_torch.launch.mesh.DistMesh` of
+more than one rank) each parameter holds this rank's shard: the
+reference's ``full_param_specs()`` (plain tuples of axis names here, one
+entry a dim: ``None``, ``"model"`` or a tuple of data axes for FSDP) say
+which.  ``shard_params`` cuts the reference's global numpy tree into this
+rank's shards and ``unshard_params`` gathers them back; FSDP leaves are
+gathered layer by layer inside the forward (``gather_fsdp``, with the
+reference's ``block_plan`` / ``top_plan`` / ``enc_plan`` / ``dec_plan`` /
+``shared_plan``).
 The stacks are not split into per-layer modules because the LP
 trust-region clip (``optim.lp_clip``) poses one LP per leaf: another split
 would change the LP batch and its answer.
@@ -39,7 +49,8 @@ step donates the old one).  Weights cross between the packages as numpy:
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import math
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,11 +58,13 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, as_device
+from repro_torch.dist import flat_specs, gather_leaf, local_shape, shard_of
 from repro_torch.models import layers as L
 from repro_torch.models.common import (HeadLayout, MeshInfo, ModelConfig,
-                                       head_layout, pad_vocab,
+                                       fsdp_dim, head_layout, pad_vocab,
                                        q_head_permutation)
-from repro_torch.tree import copy_into_, flatten_with_paths
+from repro_torch.tree import (copy_into_, flatten_with_paths,
+                              unflatten_with_paths)
 
 Params = Dict[str, Any]
 
@@ -82,6 +95,21 @@ def attn_param_shapes(cfg: ModelConfig, lay: HeadLayout, n_layers: int):
         sh["bk"] = (n_layers, lay.kv_total * hd)
         sh["bv"] = (n_layers, lay.kv_total * hd)
     return sh
+
+
+def attn_param_specs(cfg: ModelConfig, stacked: bool = True):
+    n = (None,) if stacked else ()
+    sp = {
+        "wq": (*n, None, "model"),
+        "wk": (*n, None, "model"),
+        "wv": (*n, None, "model"),
+        "wo": (*n, "model", None),
+    }
+    if cfg.qkv_bias:
+        sp["bq"] = (*n, "model")
+        sp["bk"] = (*n, "model")
+        sp["bv"] = (*n, "model")
+    return sp
 
 
 def init_attn_params(g: torch.Generator, cfg: ModelConfig, lay: HeadLayout,
@@ -146,10 +174,17 @@ class BaseModel(nn.Module):
         self.v_pad = pad_vocab(cfg.vocab, self.tp)
         self.fsdp_size = mi.data_size if cfg.fsdp else 1
         self.device = as_device(device)
+        self.mesh = mi.mesh
+        # on a mesh the parameters are laid out on "meta" first and
+        # allocated as this rank's shards by build_model (_localize)
+        self.sharded = mi.mesh is not None and (mi.model_size > 1
+                                                or mi.data_size > 1)
+        self._plans: Dict[str, Any] = {}
 
     def _param(self, shape, dtype=None) -> nn.Parameter:
+        dev = torch.device("meta") if self.sharded else self.device
         return nn.Parameter(torch.empty(shape, dtype=dtype or _dt(self.cfg),
-                                        device=self.device))
+                                        device=dev))
 
     def _stack(self, shapes: Dict[str, tuple],
                dtypes: Optional[Dict[str, torch.dtype]] = None
@@ -169,6 +204,111 @@ class BaseModel(nn.Module):
         """``{"blocks/wq": (L, d, h_pad*hd), ...}`` in slash paths."""
         return {k: tuple(v.shape)
                 for k, v in flatten_with_paths(self.param_tree()).items()}
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> Params:
+        """Fill the parameters in place from ``generator`` (on the
+        parameters' device) in the reference's draw order; returns
+        :meth:`param_tree`.  On a mesh every rank draws the whole tree
+        (from the same seed) and keeps its shards."""
+        if not self.sharded:
+            return self._init_local(generator)
+        twin = type(self)(self.cfg, MeshInfo(), device=self.device)
+        twin._init_local(generator)
+        _load_shards(self, flatten_with_paths(twin.param_tree()))
+        return self.param_tree()
+
+    def _init_local(self, generator: torch.Generator) -> Params:
+        raise NotImplementedError
+
+    # -- sharding: the reference's specs and FSDP plans ----------------------
+    def _plan(self, shapes: Dict[str, Tuple[int, ...]],
+              specs: Dict[str, tuple], stacked: bool,
+              min_elems: Optional[int] = None) -> Dict[str, Any]:
+        """Plan dims are in *sliced per-layer, per-model-rank local*
+        coordinates (what gather_fsdp sees inside a block).
+        -1 = not FSDP-sharded (replicated over data)."""
+        if min_elems is None:
+            min_elems = self.cfg.fsdp_min_elems
+        plan = {}
+        for name, shape in shapes.items():
+            if self.fsdp_size <= 1:
+                plan[name] = -1
+                continue
+            local = list(shape)
+            skip = set()
+            for i, ax in enumerate(specs[name]):
+                axes = ax if isinstance(ax, tuple) else (ax,)
+                if "model" in axes:
+                    local[i] //= self.tp
+                    skip.add(i)
+            if stacked:
+                local = local[1:]
+                skip = {i - 1 for i in skip if i > 0}
+            if math.prod(local) < min_elems:
+                plan[name] = -1
+                continue
+            dim = fsdp_dim(tuple(local), self.fsdp_size,
+                           skip_dims=tuple(skip))
+            plan[name] = -1 if dim is None else dim
+        return plan
+
+    def _merge_fsdp_specs(self, specs: Dict[str, tuple], plans: Dict[str, Any],
+                          shapes: Dict[str, Tuple[int, ...]],
+                          offset: int) -> Dict[str, tuple]:
+        """Insert the data-axes FSDP sharding into the model-parallel spec
+        at the plan's dim (+offset for the stacked-L dim)."""
+        if self.fsdp_size <= 1:
+            return specs
+        out = {}
+        for name, sp in specs.items():
+            dim = plans.get(name, -1)
+            if dim is None or dim < 0:
+                out[name] = sp
+                continue
+            g = dim + offset
+            entries = list(sp) + [None] * (len(shapes[name]) - len(sp))
+            assert entries[g] is None, (name, entries, g)
+            entries[g] = self.mi.data_axes
+            out[name] = tuple(entries)
+        return out
+
+    def _memo_plan(self, name: str, make):
+        if name not in self._plans:
+            self._plans[name] = make()
+        return self._plans[name]
+
+    def top_plan(self):
+        shapes = {"emb": (self.v_pad, self.cfg.d_model),
+                  "lm_head": (self.v_pad, self.cfg.d_model)}
+        specs = {"emb": ("model", None), "lm_head": ("model", None)}
+        return self._memo_plan("top", lambda: self._plan(shapes, specs,
+                                                          stacked=False))
+
+    def _top_shapes(self):
+        return {"emb": (self.v_pad, self.cfg.d_model),
+                "lm_head": (self.v_pad, self.cfg.d_model)}
+
+    def _merge_top(self, sp):
+        """``sp`` with the FSDP sharding of ``emb`` / ``lm_head`` merged."""
+        top = self._merge_fsdp_specs(
+            {"emb": sp["emb"], "lm_head": sp["lm_head"]}, self.top_plan(),
+            self._top_shapes(), offset=0)
+        sp.update(top)
+        return sp
+
+    def param_specs(self):
+        raise NotImplementedError
+
+    def full_param_specs(self):
+        """param_specs() with FSDP data-axis sharding merged in."""
+        raise NotImplementedError
+
+    def _top(self, params, name: str):
+        """``emb`` or ``lm_head``, gathered over the data axes if FSDP
+        shards it."""
+        return L.gather_fsdp({name: params[name]},
+                             {name: self.top_plan()[name]}, self.mi)[name]
 
     def loss(self, params, batch):
         raise NotImplementedError
@@ -252,6 +392,55 @@ class DecoderLM(BaseModel):
             sh["w_down"] = (Lr, f, d)
         return sh
 
+    def _block_specs(self):
+        cfg = self.cfg
+        sp = dict(attn_param_specs(cfg))
+        sp["ln1"] = (None, None)
+        sp["ln2"] = (None, None)
+        if cfg.n_experts:
+            sp["w_router"] = (None, None, None)
+            sp["w_gate"] = (None, "model", None, None)
+            sp["w_up"] = (None, "model", None, None)
+            sp["w_down"] = (None, "model", None, None)
+            if cfg.moe_dense_ff:
+                sp["dw_gate"] = (None, None, "model")
+                sp["dw_up"] = (None, None, "model")
+                sp["dw_down"] = (None, "model", None)
+        else:
+            sp["w_gate"] = (None, None, "model")
+            sp["w_up"] = (None, None, "model")
+            sp["w_down"] = (None, "model", None)
+        return sp
+
+    def param_specs(self):
+        sp = {
+            "emb": ("model", None),
+            "lm_head": ("model", None),
+            "final_norm": (None,),
+            "blocks": self._block_specs(),
+        }
+        if self.cfg.family == "vlm":
+            sp["vis_proj"] = (None, "model")
+            sp["vis_out"] = ("model", None)
+        return sp
+
+    def block_plan(self):
+        return self._memo_plan("block", lambda: self._plan(
+            self._block_shapes(), self._block_specs(), stacked=True))
+
+    def full_param_specs(self):
+        sp = self.param_specs()
+        sp["blocks"] = self._merge_fsdp_specs(
+            sp["blocks"], self.block_plan(), self._block_shapes(), offset=1)
+        return self._merge_top(sp)
+
+    def cache_specs(self, batch_axes):
+        return {
+            "k": (None, batch_axes, None, "model", None),
+            "v": (None, batch_axes, None, "model", None),
+            "pos": (None, batch_axes),
+        }
+
     def param_tree(self) -> Params:
         tree = {"emb": self.emb, "lm_head": self.lm_head,
                 "final_norm": self.final_norm,
@@ -262,10 +451,7 @@ class DecoderLM(BaseModel):
         return tree
 
     @torch.no_grad()
-    def init(self, generator: torch.Generator) -> Params:
-        """Fill the parameters in place from ``generator`` (on the
-        parameters' device) in the reference's draw order; returns
-        :meth:`param_tree`."""
+    def _init_local(self, generator: torch.Generator) -> Params:
         cfg, lay, g = self.cfg, self.lay, generator
         dt, dev = _dt(cfg), self.device
         d, f, Lr = cfg.d_model, cfg.d_ff, cfg.n_layers
@@ -310,7 +496,7 @@ class DecoderLM(BaseModel):
     def _block(self, h, names, *leaves, mode="train", mask_mode="causal",
                prefix=0, positions=None, cache=None):
         cfg, mi = self.cfg, self.mi
-        p = dict(zip(names, leaves))
+        p = L.gather_fsdp(dict(zip(names, leaves)), self.block_plan(), mi)
         a, new_cache = L.attn_layer(
             p, L.rms_norm(h, p["ln1"], cfg.norm_eps), mi, self.lay, cfg,
             mode=mode, mask_mode=mask_mode, prefix=prefix,
@@ -374,7 +560,7 @@ class DecoderLM(BaseModel):
 
     def _embed(self, params, ids):
         cfg = self.cfg
-        h = L.embed_lookup(params["emb"], ids, self.mi)
+        h = L.embed_lookup(self._top(params, "emb"), ids, self.mi)
         if cfg.embed_scale:
             h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype,
                                  device=h.device)
@@ -391,8 +577,14 @@ class DecoderLM(BaseModel):
             # jnp promotes float32 patches against bf16 weights; torch's
             # matmul takes one dtype, so promote first, as jnp does
             dt = torch.promote_types(patches.dtype, params["vis_proj"].dtype)
-            pe = (patches.to(dt) @ params["vis_proj"].to(dt)
-                  @ params["vis_out"].to(dt))
+            if self.mi.model_size > 1:
+                # column-sharded projector + row-sharded output proj
+                pe = L.copy_model(patches.to(dt), self.mi) \
+                    @ params["vis_proj"].to(dt)
+                pe = L.psum_model(pe @ params["vis_out"].to(dt), self.mi)
+            else:
+                pe = (patches.to(dt) @ params["vis_proj"].to(dt)
+                      @ params["vis_out"].to(dt))
             h = torch.cat([pe.to(h.dtype), h], dim=1)
             prefix = patches.shape[1]
         B, S = h.shape[0], h.shape[1]
@@ -417,8 +609,8 @@ class DecoderLM(BaseModel):
             pad = torch.full((labels.shape[0], prefix), -1,
                              dtype=labels.dtype, device=labels.device)
             labels = torch.cat([pad, labels], dim=1)
-        loss, n = L.lm_head_loss(h, params["lm_head"], labels, self.mi,
-                                 vocab_real=cfg.vocab)
+        loss, n = L.lm_head_loss(h, self._top(params, "lm_head"), labels,
+                                 self.mi, vocab_real=cfg.vocab)
         return loss + 0.01 * aux / max(cfg.n_layers, 1), {
             "ce": loss, "aux": aux, "tokens": n}
 
@@ -432,8 +624,8 @@ class DecoderLM(BaseModel):
         h, _, caches = self._trunk(params, h, mode="prefill",
                                    mask_mode=self._mask_mode(),
                                    prefix=prefix, positions=pos)
-        logits = L.lm_head_logits(h[:, -1:], params["lm_head"], self.mi,
-                                  vocab_real=cfg.vocab)
+        logits = L.lm_head_logits(h[:, -1:], self._top(params, "lm_head"),
+                                  self.mi, vocab_real=cfg.vocab)
         return logits[:, 0], caches
 
     @torch.no_grad()
@@ -447,7 +639,7 @@ class DecoderLM(BaseModel):
         h, _, caches = self._trunk(params, h, mode="decode",
                                    mask_mode="causal", prefix=0,
                                    positions=pos, caches=caches)
-        logits = L.lm_head_logits(h, params["lm_head"], self.mi,
+        logits = L.lm_head_logits(h, self._top(params, "lm_head"), self.mi,
                                   vocab_real=cfg.vocab)
         return logits[:, 0], caches
 
@@ -505,15 +697,60 @@ class EncDecLM(BaseModel):
         sh.update(self._mlp_shapes(Lr))
         return sh
 
+    def _mlp_specs(self):
+        return {"w_fc1": (None, None, "model"), "b_fc1": (None, "model"),
+                "w_fc2": (None, "model", None), "b_fc2": (None, None)}
+
+    def _enc_specs(self):
+        sp = dict(attn_param_specs(self.cfg))
+        sp.update({"ln1": (None, None), "ln2": (None, None)})
+        sp.update(self._mlp_specs())
+        return sp
+
+    def _dec_specs(self):
+        sp = dict(attn_param_specs(self.cfg))
+        sp.update({f"x_{k}": v
+                   for k, v in attn_param_specs(self.cfg).items()})
+        sp.update({"ln1": (None, None), "ln_x": (None, None),
+                   "ln2": (None, None)})
+        sp.update(self._mlp_specs())
+        return sp
+
+    def param_specs(self):
+        return {
+            "emb": ("model", None), "lm_head": ("model", None),
+            "enc_norm": (None,), "final_norm": (None,),
+            "enc": self._enc_specs(), "dec": self._dec_specs(),
+        }
+
+    def enc_plan(self):
+        return self._memo_plan("enc", lambda: self._plan(
+            self._enc_shapes(), self._enc_specs(), stacked=True))
+
+    def dec_plan(self):
+        return self._memo_plan("dec", lambda: self._plan(
+            self._dec_shapes(), self._dec_specs(), stacked=True))
+
+    def full_param_specs(self):
+        sp = self.param_specs()
+        sp["enc"] = self._merge_fsdp_specs(
+            sp["enc"], self.enc_plan(), self._enc_shapes(), offset=1)
+        sp["dec"] = self._merge_fsdp_specs(
+            sp["dec"], self.dec_plan(), self._dec_shapes(), offset=1)
+        return self._merge_top(sp)
+
+    def cache_specs(self, batch_axes):
+        kv = (None, batch_axes, None, "model", None)
+        return {"k": kv, "v": kv, "pos": (None, batch_axes),
+                "xk": kv, "xv": kv}
+
     def param_tree(self) -> Params:
         return {"emb": self.emb, "lm_head": self.lm_head,
                 "enc_norm": self.enc_norm, "final_norm": self.final_norm,
                 "enc": dict(self.enc.items()), "dec": dict(self.dec.items())}
 
     @torch.no_grad()
-    def init(self, generator: torch.Generator) -> Params:
-        """Fill the parameters in place from ``generator`` in the
-        reference's draw order; returns :meth:`param_tree`."""
+    def _init_local(self, generator: torch.Generator) -> Params:
         cfg, lay, g = self.cfg, self.lay, generator
         dt, dev = _dt(cfg), self.device
         d, f = cfg.d_model, cfg.d_ff
@@ -558,7 +795,7 @@ class EncDecLM(BaseModel):
     # -- forward ------------------------------------------------------------
     def _enc_block(self, h, names, *leaves):
         cfg, mi = self.cfg, self.mi
-        p = dict(zip(names, leaves))
+        p = L.gather_fsdp(dict(zip(names, leaves)), self.enc_plan(), mi)
         a, _ = L.attn_layer(p, L.rms_norm(h, p["ln1"], cfg.norm_eps), mi,
                             self.lay, cfg, mode="train", mask_mode="full",
                             use_rope=False)
@@ -583,6 +820,7 @@ class EncDecLM(BaseModel):
         """Per-layer cross K/V from the encoder's output."""
         B, S, _ = enc_out.shape
         hd, kvl = self.cfg.hd, self.lay.kv_local
+        enc_out = L.copy_model(enc_out, self.mi)
         k = (enc_out @ p_l["x_wk"]).reshape(B, S, kvl, hd)
         v = (enc_out @ p_l["x_wv"]).reshape(B, S, kvl, hd)
         if self.cfg.qkv_bias:
@@ -593,7 +831,7 @@ class EncDecLM(BaseModel):
     def _dec_block(self, h, names, *leaves, enc_out=None, mode="train",
                    cache=None, cross_kv=None, positions=None):
         cfg, mi = self.cfg, self.mi
-        p_l = dict(zip(names, leaves))
+        p_l = L.gather_fsdp(dict(zip(names, leaves)), self.dec_plan(), mi)
         a, new_cache = L.attn_layer(
             p_l, L.rms_norm(h, p_l["ln1"], cfg.norm_eps), mi, self.lay, cfg,
             mode=mode, mask_mode="causal", positions=positions, cache=cache,
@@ -642,7 +880,7 @@ class EncDecLM(BaseModel):
 
     def _tokens(self, params, tokens):
         S = tokens.shape[1]
-        h = L.embed_lookup(params["emb"], tokens, self.mi)
+        h = L.embed_lookup(self._top(params, "emb"), tokens, self.mi)
         return h + L.sinusoid_pos_emb(S, self.cfg.d_model, h.dtype, h.device)
 
     def loss(self, params, batch):
@@ -652,8 +890,9 @@ class EncDecLM(BaseModel):
         h = self._tokens(params, batch["tokens"])
         h, _ = self._decode_trunk(params, h, enc_out, mode="train",
                                   caches=None, positions=None)
-        loss, n = L.lm_head_loss(h, params["lm_head"], batch["labels"],
-                                 self.mi, vocab_real=self.cfg.vocab)
+        loss, n = L.lm_head_loss(h, self._top(params, "lm_head"),
+                                 batch["labels"], self.mi,
+                                 vocab_real=self.cfg.vocab)
         return loss, {"ce": loss, "tokens": n}
 
     @torch.no_grad()
@@ -662,8 +901,8 @@ class EncDecLM(BaseModel):
         h = self._tokens(params, batch["tokens"])
         h, caches = self._decode_trunk(params, h, enc_out, mode="prefill",
                                        caches=None, positions=None)
-        logits = L.lm_head_logits(h[:, -1:], params["lm_head"], self.mi,
-                                  vocab_real=self.cfg.vocab)
+        logits = L.lm_head_logits(h[:, -1:], self._top(params, "lm_head"),
+                                  self.mi, vocab_real=self.cfg.vocab)
         return logits[:, 0], caches
 
     @torch.no_grad()
@@ -671,14 +910,14 @@ class EncDecLM(BaseModel):
         """As :meth:`DecoderLM.decode`; the position table is as long as
         the cache."""
         cfg = self.cfg
-        h = L.embed_lookup(params["emb"], batch["token"], self.mi)
+        h = L.embed_lookup(self._top(params, "emb"), batch["token"], self.mi)
         pos_emb = L.sinusoid_pos_emb(int(caches["k"].shape[2]), cfg.d_model,
                                      h.dtype, h.device)
         h = h + pos_emb[batch["pos"].long()][:, None]
         h, caches = self._decode_trunk(params, h, None, mode="decode",
                                        caches=caches,
                                        positions=batch["pos"][:, None])
-        logits = L.lm_head_logits(h, params["lm_head"], self.mi,
+        logits = L.lm_head_logits(h, self._top(params, "lm_head"), self.mi,
                                   vocab_real=cfg.vocab)
         return logits[:, 0], caches
 
@@ -733,13 +972,49 @@ class SSMLM(BaseModel):
             "norm": (Lr, di), "w_out": (Lr, di, d),
         }
 
+    def _block_specs(self):
+        return {
+            "ln": (None, None),
+            "w_z": (None, None, "model"), "w_x": (None, None, "model"),
+            "w_B": (None, None, None), "w_C": (None, None, None),
+            "w_dt": (None, None, "model"), "dt_bias": (None, "model"),
+            "A_log": (None, "model"), "D": (None, "model"),
+            "conv_x": (None, None, "model"),
+            "conv_B": (None, None, None), "conv_C": (None, None, None),
+            "norm": (None, "model"), "w_out": (None, "model", None),
+        }
+
+    def param_specs(self):
+        return {
+            "emb": ("model", None), "lm_head": ("model", None),
+            "final_norm": (None,), "blocks": self._block_specs(),
+        }
+
+    def block_plan(self):
+        return self._memo_plan("block", lambda: self._plan(
+            self._block_shapes(), self._block_specs(), stacked=True))
+
+    def full_param_specs(self):
+        sp = self.param_specs()
+        sp["blocks"] = self._merge_fsdp_specs(
+            sp["blocks"], self.block_plan(), self._block_shapes(), offset=1)
+        return self._merge_top(sp)
+
+    def cache_specs(self, batch_axes):
+        return {
+            "state": (None, batch_axes, "model", None, None),
+            "conv_x": (None, batch_axes, None, "model"),
+            "conv_B": (None, batch_axes, None, None),
+            "conv_C": (None, batch_axes, None, None),
+        }
+
     def param_tree(self) -> Params:
         return {"emb": self.emb, "lm_head": self.lm_head,
                 "final_norm": self.final_norm,
                 "blocks": dict(self.blocks.items())}
 
     @torch.no_grad()
-    def init(self, generator: torch.Generator) -> Params:
+    def _init_local(self, generator: torch.Generator) -> Params:
         """Fill the parameters in place from ``generator``: the
         reference's distributions and constants (``A_log = log(linspace(1,
         16, H))``, ``dt_bias = 0.5``, ``D = 1``, ``w_out`` at ``0.02 /
@@ -775,7 +1050,7 @@ class SSMLM(BaseModel):
     # -- forward ------------------------------------------------------------
     def _mamba_block(self, h, names, *leaves, mode="train", cache=None):
         cfg = self.cfg
-        p = dict(zip(names, leaves))
+        p = L.gather_fsdp(dict(zip(names, leaves)), self.block_plan(), self.mi)
         y, new_cache = L.mamba2_layer(
             p, L.rms_norm(h, p["ln"], cfg.norm_eps), self.mi, cfg,
             mode=mode, cache=cache)
@@ -815,10 +1090,11 @@ class SSMLM(BaseModel):
 
     def loss(self, params, batch):
         """``(loss, {"ce", "tokens"})`` for ``{"tokens", "labels"}``."""
-        h = L.embed_lookup(params["emb"], batch["tokens"], self.mi)
+        h = L.embed_lookup(self._top(params, "emb"), batch["tokens"], self.mi)
         h, _ = self._trunk(params, h, mode="train")
-        loss, n = L.lm_head_loss(h, params["lm_head"], batch["labels"],
-                                 self.mi, vocab_real=self.cfg.vocab)
+        loss, n = L.lm_head_loss(h, self._top(params, "lm_head"),
+                                 batch["labels"], self.mi,
+                                 vocab_real=self.cfg.vocab)
         return loss, {"ce": loss, "tokens": n}
 
     @torch.no_grad()
@@ -828,10 +1104,10 @@ class SSMLM(BaseModel):
         "conv_C": (L, B, K-1, ...)}``: nothing in it grows with the
         sequence.  The prompt's length must be a multiple of
         ``min(ssm_chunk, length)``."""
-        h = L.embed_lookup(params["emb"], batch["tokens"], self.mi)
+        h = L.embed_lookup(self._top(params, "emb"), batch["tokens"], self.mi)
         h, caches = self._trunk(params, h, mode="prefill")
-        logits = L.lm_head_logits(h[:, -1:], params["lm_head"], self.mi,
-                                  vocab_real=self.cfg.vocab)
+        logits = L.lm_head_logits(h[:, -1:], self._top(params, "lm_head"),
+                                  self.mi, vocab_real=self.cfg.vocab)
         return logits[:, 0], caches
 
     @torch.no_grad()
@@ -842,10 +1118,10 @@ class SSMLM(BaseModel):
         return self._decode(params, batch["token"], caches, None)
 
     def _decode(self, params, token, caches, positions):
-        h = L.embed_lookup(params["emb"], token, self.mi)
+        h = L.embed_lookup(self._top(params, "emb"), token, self.mi)
         h, caches = self._trunk(params, h, mode="decode", caches=caches,
                                 positions=positions)
-        logits = L.lm_head_logits(h, params["lm_head"], self.mi,
+        logits = L.lm_head_logits(h, self._top(params, "lm_head"), self.mi,
                                   vocab_real=self.cfg.vocab)
         return logits[:, 0], caches
 
@@ -890,16 +1166,49 @@ class HybridLM(SSMLM):
                    "w_up": (d, f), "w_down": (f, d)})
         return sh
 
+    def _shared_specs(self):
+        sp = dict(attn_param_specs(self.cfg, stacked=False))
+        sp.update({"ln1": (None,), "ln2": (None,),
+                   "w_gate": (None, "model"), "w_up": (None, "model"),
+                   "w_down": ("model", None)})
+        return sp
+
+    def param_specs(self):
+        sp = super().param_specs()
+        sp["shared"] = self._shared_specs()
+        return sp
+
+    def shared_plan(self):
+        return self._memo_plan("shared", lambda: self._plan(
+            self._shared_shapes(), self._shared_specs(), stacked=False))
+
+    def full_param_specs(self):
+        sp = super().full_param_specs()
+        sp["shared"] = self._merge_fsdp_specs(
+            sp["shared"], self.shared_plan(), self._shared_shapes(),
+            offset=0)
+        return sp
+
+    def cache_specs(self, batch_axes):
+        return {
+            "ssm": super().cache_specs(batch_axes),
+            "attn": {
+                "k": (None, batch_axes, None, "model", None),
+                "v": (None, batch_axes, None, "model", None),
+                "pos": (None, batch_axes),
+            },
+        }
+
     def param_tree(self) -> Params:
         tree = super().param_tree()
         tree["shared"] = dict(self.shared.items())
         return tree
 
     @torch.no_grad()
-    def init(self, generator: torch.Generator) -> Params:
-        """:meth:`SSMLM.init`, then the shared block: ``wo`` and
+    def _init_local(self, generator: torch.Generator) -> Params:
+        """:meth:`SSMLM._init_local`, then the shared block: ``wo`` and
         ``w_down`` at ``0.02 / sqrt(2 n_seg)``."""
-        super().init(generator)
+        super()._init_local(generator)
         cfg, g = self.cfg, generator
         dt, dev = _dt(cfg), self.device
         d, f = cfg.d_model, cfg.d_ff
@@ -921,7 +1230,7 @@ class HybridLM(SSMLM):
 
     def _shared_block(self, params, h, *, mode, positions, cache):
         cfg, mi = self.cfg, self.mi
-        p = params["shared"]
+        p = L.gather_fsdp(params["shared"], self.shared_plan(), mi)
         a, new_cache = L.attn_layer(
             p, L.rms_norm(h, p["ln1"], cfg.norm_eps), mi, self.lay, cfg,
             mode=mode, mask_mode="causal", positions=positions, cache=cache)
@@ -984,16 +1293,92 @@ class HybridLM(SSMLM):
 
 def build_model(cfg: ModelConfig, mi: MeshInfo,
                 device: DeviceLike = None) -> BaseModel:
-    """The model for ``cfg`` on ``device`` (default: the card)."""
+    """The model for ``cfg`` on ``device`` (default: the card); on a mesh
+    its parameters are this rank's shards (uninitialised)."""
     if cfg.family in ("dense", "moe", "vlm"):
-        return DecoderLM(cfg, mi, device)
-    if cfg.family == "encdec":
-        return EncDecLM(cfg, mi, device)
-    if cfg.family == "ssm":
-        return SSMLM(cfg, mi, device)
-    if cfg.family == "hybrid":
-        return HybridLM(cfg, mi, device)
-    raise ValueError(cfg.family)
+        model = DecoderLM(cfg, mi, device)
+    elif cfg.family == "encdec":
+        model = EncDecLM(cfg, mi, device)
+    elif cfg.family == "ssm":
+        model = SSMLM(cfg, mi, device)
+    elif cfg.family == "hybrid":
+        model = HybridLM(cfg, mi, device)
+    else:
+        raise ValueError(cfg.family)
+    if model.sharded:
+        _localize(model)
+    return model
+
+
+# ---------------------------------------------------------------------------
+# Shards of the reference's global tree
+# ---------------------------------------------------------------------------
+
+def _localize(model: BaseModel) -> None:
+    """Allocate each (meta) parameter as this rank's shard on the model's
+    device."""
+    specs = flat_specs(model.full_param_specs())
+    for path, prm in flatten_with_paths(model.param_tree()).items():
+        shape = local_shape(prm.shape, specs[path], model.mesh)
+        new = nn.Parameter(torch.empty(shape, dtype=prm.dtype,
+                                       device=model.device))
+        *parents, name = path.split("/")
+        owner = model
+        for part in parents:
+            owner = getattr(owner, part)
+        if isinstance(owner, nn.ParameterDict):
+            owner[name] = new
+        else:
+            setattr(owner, name, new)
+
+
+@torch.no_grad()
+def _load_shards(model: BaseModel, flat: Dict[str, Any]) -> None:
+    """Write this rank's shard of every global leaf in ``flat`` (slash
+    paths; tensors or numpy arrays) into the model's parameters."""
+    specs = flat_specs(model.full_param_specs())
+    for path, prm in flatten_with_paths(model.param_tree()).items():
+        x = flat[path]
+        if not isinstance(x, torch.Tensor):
+            x = _tensor_from_numpy(x)
+        prm.copy_(shard_of(x, specs[path], model.mesh).to(prm.dtype))
+
+
+def shard_params(model: BaseModel, tree_np, mesh=None) -> Params:
+    """Load the reference's global parameter tree (numpy leaves, as
+    ``params_from_numpy`` takes it) into ``model``, each rank its own
+    shards under ``model.full_param_specs()``; returns
+    :meth:`~BaseModel.param_tree`.  ``mesh`` defaults to the model's."""
+    if not model.sharded:
+        return params_from_numpy(model, tree_np)
+    if mesh is not None and mesh is not model.mesh:
+        raise ValueError("shard_params: the mesh is not the model's")
+    like = model.param_tree()
+    _tree_from_keys(tree_np, like)
+    _load_shards(model, flatten_with_paths(tree_np))
+    return model.param_tree()
+
+
+def _tree_from_keys(node, like) -> None:
+    if isinstance(like, dict):
+        if set(node) != set(like):
+            raise ValueError(f"keys {sorted(node)} are not the model's "
+                             f"{sorted(like)}")
+        for k, v in like.items():
+            _tree_from_keys(node[k], v)
+
+
+def unshard_params(model: BaseModel, tree=None) -> Params:
+    """The global parameter tree, as numpy on every rank (the inverse of
+    :func:`shard_params`); ``tree`` (default: the model's parameters) may
+    be any tree of the parameters' shapes, e.g. their gradients."""
+    tree = model.param_tree() if tree is None else tree
+    if not model.sharded:
+        return params_to_numpy(tree)
+    specs = flat_specs(model.full_param_specs())
+    flat = {k: gather_leaf(v, specs[k], model.mesh)
+            for k, v in flatten_with_paths(tree).items()}
+    return params_to_numpy(unflatten_with_paths(flat, tree))
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,7 @@ architecture).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -48,11 +48,14 @@ class AdamW:
             m=tree_map(zeros, params), v=tree_map(zeros, params))
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params
+    def update(self, grads, state: AdamWState, params, *,
+               leaf_sum: Optional[Callable] = None
                ) -> Tuple[Any, AdamWState]:
+        """``leaf_sum`` (on a mesh) turns each leaf's local sum of squares
+        into the whole leaf's: see :func:`global_norm`."""
         grads = tree_map(lambda g: g.float(), grads)
         if self.grad_clip:
-            gn = global_norm(grads)
+            gn = global_norm(grads, leaf_sum)
             scale = torch.clamp(self.grad_clip / (gn + 1e-9), max=1.0)
             grads = tree_map(lambda g: g * scale, grads)
         step = state.step + 1
@@ -82,10 +85,14 @@ def apply_updates(params, updates):
                     params, updates)
 
 
-def global_norm(tree) -> torch.Tensor:
-    leaves = tree_leaves(tree)
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in leaves))
+def global_norm(tree, leaf_sum: Optional[Callable] = None) -> torch.Tensor:
+    """The 2-norm of every leaf together.  On a mesh a leaf is this
+    rank's shard: ``leaf_sum`` maps the list of per-leaf sums of squares
+    to the sums over each leaf's shards (``dist.sum_leaves``)."""
+    sq = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    if leaf_sum is not None:
+        sq = leaf_sum(sq)
+    return torch.sqrt(sum(sq))
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,13 @@ reference always defaults to ``"rgb"`` (ROADMAP C): ``"kernel"`` for
 tensors on a card, ``"rgb"`` (the plain Seidel loop, the reference's
 default) on the CPU; an explicit ``method`` wins.  Both are exact solvers,
 so the answers agree to the usual 1e-4.
+
+On a mesh each leaf is this rank's shard, where the reference's statistics
+are of whole leaves (it runs outside ``shard_map``): ``||u||``, ``<u, g>``,
+``||m||``, ``||p||`` and ``<mu, g>`` are then local sums of squares and
+dots, all-reduced over exactly the axes that shard the leaf (``leaf_axes``)
+and never over those that replicate it.  Every rank so poses the same LP
+batch, equal in bits, and launches the kernel once on it.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from repro_torch import dist as D
 from repro_torch.core.lp import make_batch
 from repro_torch.solver import SolverSpec, get_solver
 from repro_torch.tree import tree_leaves, tree_unflatten
@@ -45,23 +53,50 @@ def _block_stats(u, g, m):
     un = torch.linalg.vector_norm(u32)
     mn = torch.linalg.vector_norm(m32)
     mu = m32 / (mn + _EPS)
-    return un, torch.dot(u32, g32), torch.dot(mu, g32)
+    return un, torch.dot(u32, g32), torch.dot(mu, g32), mn
 
 
-@torch.no_grad()
-def lp_problems(updates, grads, momenta, params, *, delta: float = 0.05,
-                lam: float = 0.1
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The step's LP batch: ``A (nb, 6, 2)``, ``b (nb, 6)``, ``c (nb, 2)``
-    float32 on the leaves' device, problem ``i`` for leaf ``i`` in
-    :func:`~repro_torch.tree.tree_leaves` order."""
-    leaves_u = tree_leaves(updates)
+def _leaf_stats(updates, grads, momenta, params, leaf_axes, mesh):
+    """Per leaf ``(||u||, <u, g>, <mu, g>, ||p||, ||m||)`` of the whole
+    leaf.  A leaf sharded over some axes of ``mesh`` (``leaf_axes[i]``)
+    sums its shards' squares and dots over exactly those axes."""
+    leaves = list(zip(tree_leaves(updates), tree_leaves(grads),
+                      tree_leaves(momenta), tree_leaves(params),
+                      strict=True))
+    if leaf_axes is None:
+        leaf_axes = [()] * len(leaves)
+    sharded = [mesh is not None and mesh.size(ax) > 1 for ax in leaf_axes]
+    stats = [None] * len(leaves)
+    local = []
+    for i, (u, g, m, p) in enumerate(leaves):
+        if not sharded[i]:
+            un, ug, mg, mn = _block_stats(u, g, m)
+            stats[i] = (un, ug, mg, torch.linalg.vector_norm(
+                p.float().ravel()), mn)
+            local.append(None)
+            continue
+        u32, g32 = u.float().ravel(), g.float().ravel()
+        m32, p32 = m.float().ravel(), p.float().ravel()
+        local.append(torch.stack([torch.dot(u32, u32), torch.dot(m32, m32),
+                                  torch.dot(p32, p32), torch.dot(u32, g32)]))
+    idx = [i for i in range(len(leaves)) if sharded[i]]
+    axes = [leaf_axes[i] for i in idx]
+    tot = D.sum_leaves([local[i] for i in idx], axes, mesh)
+    mg_local = []
+    for i, t in zip(idx, tot):
+        mn = torch.sqrt(t[1])
+        m32, g32 = leaves[i][2].float().ravel(), leaves[i][1].float().ravel()
+        mg_local.append(torch.dot(m32 / (mn + _EPS), g32))
+        stats[i] = (torch.sqrt(t[0]), t[3], None, torch.sqrt(t[2]), mn)
+    for i, mg in zip(idx, D.sum_leaves(mg_local, axes, mesh)):
+        un, ug, _, pn, mn = stats[i]
+        stats[i] = (un, ug, mg, pn, mn)
+    return stats
+
+
+def _problems(stats, delta: float, lam: float):
     rows_A, rows_b = [], []
-    for u, g, m, p in zip(leaves_u, tree_leaves(grads),
-                          tree_leaves(momenta), tree_leaves(params),
-                          strict=True):
-        un, ug, mg = _block_stats(u, g, m)
-        pn = torch.linalg.vector_norm(p.float().ravel())
+    for un, ug, mg, pn, _ in stats:
         # the s2 momentum correction is scaled to 10% of the update norm
         mg_s = 0.1 * un * mg
         zero, one = torch.zeros_like(un), torch.ones_like(un)
@@ -84,21 +119,36 @@ def lp_problems(updates, grads, momenta, params, *, delta: float = 0.05,
 
 
 @torch.no_grad()
+def lp_problems(updates, grads, momenta, params, *, delta: float = 0.05,
+                lam: float = 0.1, leaf_axes=None, mesh=None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The step's LP batch: ``A (nb, 6, 2)``, ``b (nb, 6)``, ``c (nb, 2)``
+    float32 on the leaves' device, problem ``i`` for leaf ``i`` in
+    :func:`~repro_torch.tree.tree_leaves` order.  On a mesh,
+    ``leaf_axes[i]`` names the axes that shard leaf ``i``."""
+    return _problems(_leaf_stats(updates, grads, momenta, params,
+                                 leaf_axes, mesh), delta, lam)
+
+
+@torch.no_grad()
 def lp_constrain_updates(
     updates, grads, momenta, params,
     *,
     delta: float = 0.05,
     lam: float = 0.1,
     method: Optional[str] = None,
+    leaf_axes=None,
+    mesh=None,
 ) -> Tuple[Any, torch.Tensor]:
     """Scale each update leaf by the LP-optimal (s1, s2).
 
     Returns (new_updates, mean_s1) — mean_s1 is a health metric: 1.0 means
     the trust region never binds.  ``method=None`` picks ``"kernel"`` for
-    tensors on a card and ``"rgb"`` on the CPU.
+    tensors on a card and ``"rgb"`` on the CPU.  On a mesh ``leaf_axes``
+    (one tuple of axis names a leaf) says which axes shard each leaf.
     """
-    A, b, c = lp_problems(updates, grads, momenta, params, delta=delta,
-                          lam=lam)
+    stats = _leaf_stats(updates, grads, momenta, params, leaf_axes, mesh)
+    A, b, c = _problems(stats, delta, lam)
     if method is None:
         method = "kernel" if A.device.type == "cuda" else "rgb"
     sol = get_solver(SolverSpec(backend=method, M=M_BOX),
@@ -110,8 +160,7 @@ def lp_constrain_updates(
     for i, (u, m) in enumerate(zip(tree_leaves(updates),
                                    tree_leaves(momenta), strict=True)):
         u32 = u.float()
-        mn = torch.linalg.vector_norm(m.float().ravel()) + _EPS
-        un = torch.linalg.vector_norm(u32.ravel())
+        un, mn = stats[i][0], stats[i][4] + _EPS
         nu = (s1[i] * u32
               + 0.1 * un * s2[i] * m.float() / mn)
         new_leaves.append(nu.to(u.dtype))

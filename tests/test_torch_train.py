@@ -468,17 +468,24 @@ def test_one_card_mesh_and_what_needs_more_cards():
     mi = mesh_info(mesh)
     assert (mi.model_size, mi.data_size, mi.data_axes) == (1, 1, ("data",))
     assert batch_axes(mesh, 7) == ("data",)
-    for bad in ((2, 1), (1, 2)):
-        with pytest.raises(NotImplementedError, match="A9"):
+    # without a process group of world 4 a 2x2 mesh names the world it needs
+    for bad in ((2, 2), (4, 1), (1, 2)):
+        with pytest.raises(ValueError, match=f"world size {bad[0] * bad[1]}"):
             make_host_mesh(*bad, device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        make_production_mesh(multi_pod=True)
+    for multi_pod, need in ((False, 256), (True, 512)):
+        with pytest.raises(ValueError, match=f"needs world size {need}"):
+            make_production_mesh(multi_pod=multi_pod)
     cfg = smoke_config(ARCHS["qwen2-0.5b"])
     prog = make_train_step(cfg, mesh, global_batch=2)
     assert prog.jit() is prog.step
-    for kw in ({"manual_comm": True}, {"compress_pod": True}):
-        with pytest.raises(NotImplementedError, match="A9"):
-            make_train_step(cfg, mesh, global_batch=2, **kw)
+    # the hand-written gradient path builds on any mesh; with FSDP it
+    # raises the reference's ValueError
+    for kw in ({"manual_comm": True},
+               {"manual_comm": True, "compress_pod": True}):
+        make_train_step(cfg, mesh, global_batch=2, **kw)
+    with pytest.raises(ValueError, match="fsdp=False"):
+        make_train_step(dataclasses.replace(cfg, fsdp=True), mesh,
+                        global_batch=2, manual_comm=True)
 
 
 # ---------------------------------------------------------------------------
