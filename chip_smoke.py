@@ -11,9 +11,11 @@ users would call real — the paper's figure-3 batch of 16384 problems at the
 README's example width of 256 constraints, Qwen2-0.5B and Mamba2-1.3B
 trained at full width with the LP solver inside their optimizer, six
 language models served at full width, the solve service's own benchmark in
-all its modes and the paper's crowd simulation at 16,384 agents — and
-and, in its ``dist`` phase, trains and serves Qwen2-0.5B at full width on meshes
-of ranks over ``torch.distributed`` — and prints one JSON object per line:
+all its modes and the paper's crowd simulation at 16,384 agents — and,
+in its ``dist`` phase, trains and serves Qwen2-0.5B at full width on meshes
+of ranks over ``torch.distributed``, and in its ``dryrun`` phase counts
+every architecture's step on the 256- and 512-card production meshes —
+and prints one JSON object per line:
 
 1. ``probe``   PyTorch / CUDA versions, device name and power limit, nvcc.
 2. ``build``   builds ``src/repro_torch/kernels/csrc/batch_lp.cu`` for
@@ -32,7 +34,8 @@ of ranks over ``torch.distributed`` — and prints one JSON object per line:
    is done at every shape, tile and chunk the serving and RPC runs really
    launched the kernel with (read from the scheduler's executable cache).
    The ``kernels`` line is printed once, near the end, with the launch
-   counts of phases 4, 5, 8, 8b-8d, 9, 9b and 11 (phase 10 launches none).
+   counts of phases 4, 5, 8, 8b-8d, 9, 9b, 11 and 12 (phase 10 launches
+   none).
 4. ``solver``  ``SolverSpec(backend="auto").build().solve(...)`` on AoS and
    pre-packed batches: resolved to what the active tuning table names
    (the kernel on a miss), launch count advanced,
@@ -145,6 +148,21 @@ of ranks over ``torch.distributed`` — and prints one JSON object per line:
    backend and transport, step ms (CUDA events; ``ranks_share_one_card``
    where they do), peak memory a rank, collectives a step by op.  Rank
    0's first LP batch joins the ``kernels`` line (``path="dist"``).
+12. ``dryrun`` ``repro_torch.launch.dryrun``: (a) ``--all`` (one process a
+   core) — every arch x shape on the 16x16 and 2x16x16 meshes, run on
+   ``meta`` as rank 0 of a ``RecordingMesh`` — then ``--lp`` on both meshes
+   and qwen2-0.5b ``train_4k`` with the LP clip: 80 cells, 16 skipped, 0
+   FAIL, each cell's line with its per-device argument and peak bytes
+   against the card's 80 GB, its three terms, bottleneck,
+   ``roofline_fraction`` and collectives, the ``lp-clip`` cell one
+   ``repro_torch::rgb`` call; (b) at world 1, the dry run of phase 9's
+   LP-clipped step and of one phase-10 decode step (batch 8, cache 544)
+   against the same steps on the card: the predicted peak within 10% of
+   ``max_memory_allocated``, the FLOPs equal to ``count_call``'s, one
+   ``rgb`` call recorded and one ``rgb_cuda`` launch, whose LP batch
+   joins the ``kernels`` line (``path="dryrun"``); (c) phase 11's gloo
+   steps (2x2 TP+DP, 2x2 FSDP, (1, 4) serving) recorded on a
+   ``RecordingMesh``: every op's calls and bytes equal to the ranks'.
 
 Every input is made from a fixed numpy seed.  Any failed check exits
 non-zero.  The last line is exactly
@@ -2483,7 +2501,283 @@ def phase_dist(device, card: str) -> tuple:
         emit({**line, "card": card})
     emit({"phase": "dist", "run": "done", "seconds": seconds, "card": card})
     check(not failed, "; ".join(failed))
-    return lp_batch, g0["tp_dp"]["launches"], seconds
+    gloo_counts = {"tp_dp": g0["tp_dp"]["collectives"],
+                   "fsdp": g0["fsdp"]["collectives"],
+                   "serve": g0["serve"]["collectives"]}
+    return lp_batch, g0["tp_dp"]["launches"], seconds, gloo_counts
+
+
+# ---------------------------------------------------------------------------
+# The dry run (repro_torch.launch.dryrun): every arch x shape step on the
+# 16x16 and 2x16x16 production meshes, run on meta tensors as rank 0 of a
+# RecordingMesh, its collectives recorded and not issued; then its model of
+# a step held against the card (peak memory, FLOPs, the kernel's one call)
+# and against the real ranks of the dist phase (every collective).
+# ---------------------------------------------------------------------------
+
+DRYRUN_TIMEOUT_S = 600
+DRYRUN_MEM_RTOL = 0.10       # predicted peak against max_memory_allocated
+DRYRUN_DECODE_BATCH, DRYRUN_DECODE_CACHE = 8, 544   # lm_serve's shape
+DRYRUN_CELLS, DRYRUN_SKIPPED = 80, 16
+
+
+def _dryrun_sweep(card: str, name: str) -> list:
+    """``python -m repro_torch.launch.dryrun --all`` (one process a core),
+    ``--lp`` on both meshes, and qwen2-0.5b ``train_4k`` with the LP clip
+    on 16x16: every record, each cell on its own line."""
+    from repro_torch.launch import dryrun
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH", "")]))
+    jobs = max(1, min(8, os.cpu_count() or 1))
+    out = str(dryrun.RESULTS_DIR / "dryrun.json")
+    t0 = time.perf_counter()
+    for argv in (["--all", "--jobs", str(jobs)], ["--lp"],
+                 ["--lp", "--multi-pod"]):
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
+             "--peaks", name, "--out", out], env=env, capture_output=True,
+            text=True, timeout=DRYRUN_TIMEOUT_S)
+        if proc.returncode:
+            sys.stderr.write(proc.stdout[-6000:] + proc.stderr[-6000:])
+        check(proc.returncode == 0, f"dryrun {' '.join(argv)} exited "
+              f"{proc.returncode}")
+    sweep_s = time.perf_counter() - t0
+    clip = dryrun.dryrun_cell(TRAIN_ARCH, "train_4k", peaks=name,
+                              step_kwargs={"lp_clip": True},
+                              variant="lp-clip", verbose=False)
+    dryrun.write_records([clip], out)
+    with open(out) as f:
+        records = json.load(f)
+    base = [r for r in records if not r["arch"].startswith("lp-")
+            and r.get("variant", "baseline") == "baseline"]
+    status = [r["status"] for r in base]
+    for r in records:
+        line = {"phase": "dryrun", "part": "sweep", "arch": r["arch"],
+                "shape": r["shape"],
+                "mesh": "2x16x16" if r["multi_pod"] else "16x16",
+                "variant": r.get("variant", "baseline"),
+                "status": r["status"], "card": card}
+        if r["status"] == "ok":
+            roof, mem = r["roofline"], r["memory"]
+            line.update(
+                argument_gb=mem["argument_bytes"] / 1e9,
+                peak_gb=mem["peak_bytes"] / 1e9,
+                memory_gb=roof["peaks"]["memory_bytes"] / 1e9,
+                fits=mem["peak_bytes"] <= roof["peaks"]["memory_bytes"],
+                t_compute_ms=roof["t_compute_s"] * 1e3,
+                t_memory_ms=roof["t_memory_s"] * 1e3,
+                t_collective_ms=roof["t_collective_s"] * 1e3,
+                bottleneck=roof["bottleneck"],
+                roofline_fraction=roof["roofline_fraction"],
+                coll_by_op=roof["coll_by_op"],
+                kernel_calls=r.get("kernel_calls"),
+                meta_run_s=r["compile_s"])
+        else:
+            line["reason"] = r.get("reason") or r.get("error")
+        emit(line)
+    ok = [r for r in base if r["status"] == "ok"]
+    emit({"phase": "dryrun", "part": "sweep_done", "cells": len(base),
+          "ok": len(ok), "skipped": status.count("skipped"),
+          "failed": status.count("FAIL"),
+          "do_not_fit": [[r["arch"], r["shape"], r["multi_pod"]]
+                         for r in ok if not r["fits"]],
+          "sweep_s": sweep_s, "jobs": jobs, "records": out, "card": card})
+    check(len(base) == DRYRUN_CELLS and status.count("FAIL") == 0
+          and status.count("skipped") == DRYRUN_SKIPPED,
+          f"dryrun sweep: {len(base)} cells, {status.count('FAIL')} FAIL, "
+          f"{status.count('skipped')} skipped")
+    check(all(r["memory"]["peak_bytes"] > 0 and r["roofline"]["coll_by_op"]
+              for r in ok), "dryrun: a cell without a peak or collectives")
+    lp = {(r["arch"], r["multi_pod"]): r for r in records
+          if r["arch"].startswith("lp-")}
+    check(all(lp[("lp-naive", mp)]["status"] == "ok"
+              and lp[("lp-rgb", mp)]["status"] == "not_on_meta"
+              for mp in (False, True)), f"dryrun --lp: {sorted(lp)}")
+    check(clip["kernel_calls"] == {"repro_torch::rgb": 1},
+          f"dryrun lp-clip: kernel calls {clip['kernel_calls']}")
+    return records
+
+
+def _card_peak(step, *args) -> tuple:
+    """``step(*args)`` on the card: ``(max_memory_allocated after
+    reset_peak_memory_stats, memory_allocated before)``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    step(*args)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated(), before
+
+
+def _dryrun_vs_card(device, card: str, name: str) -> tuple:
+    """(b) at world 1: the dry run of the train phase's LP-clipped step and
+    of one lm_serve decode step (qwen2-0.5b, bf16, on a ``meta`` HostMesh)
+    against the same steps on the card.  Returns the lines, the card
+    step's LP batch and its rgb_cuda launches."""
+    from repro_torch.configs import ARCHS, InputShape
+    from repro_torch.data.pipeline import TokenSource, for_model
+    from repro_torch.kernels.batch_lp import rgb_cuda
+    from repro_torch.launch import steps
+    from repro_torch.launch.dryrun import dryrun_step
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import AdamW
+    from repro_torch.optim import lp_clip as lp_clip_mod
+    from repro_torch.roofline import count_call
+
+    cfg = ARCHS[TRAIN_ARCH]
+    meta = make_host_mesh(1, 1, device="meta")
+    lines = []
+    # the train step
+    dry = dryrun_step(cfg, InputShape("train", "train", TRAIN_SEQ,
+                                      TRAIN_BATCH), meta, peaks=name,
+                      step_kwargs={"lp_clip": True})
+    free_card()
+    opt = AdamW()
+    prog = steps.make_train_step(cfg, make_host_mesh(1, 1, device=device),
+                                 opt, global_batch=TRAIN_BATCH, lp_clip=True)
+    params = prog.model.init(torch.Generator(device=device).manual_seed(
+        SEED))
+    state = opt.init(params)
+    src = TokenSource(for_model(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=SEED))
+    batch = {k: torch.as_tensor(v, device=device)
+             for k, v in src.global_batch(0).items()}
+    counted = count_call(prog.step, params, state, batch, {})
+    seen = []
+    real = lp_clip_mod.make_batch
+
+    def spy(A, b, c, *a, **k):
+        seen.append(tuple(t.detach().cpu().numpy() for t in (A, b, c)))
+        return real(A, b, c, *a, **k)
+    lp_clip_mod.make_batch = spy
+    rgb_cuda.launches = 0
+    try:
+        peak, before = _card_peak(prog.step, params, state, batch, {})
+    finally:
+        lp_clip_mod.make_batch = real
+    launches = rgb_cuda.launches
+    lines.append(_dryrun_line("train", dry, peak, before, card, {
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "dtype": cfg.dtype,
+        "count_call_flops": counted.flops, "count_call_ran_on":
+        counted.ran_on, "rgb_cuda_launches": launches}))
+    del prog, params, state, batch
+    free_card()
+    # one decode step
+    B, S = DRYRUN_DECODE_BATCH, DRYRUN_DECODE_CACHE
+    dry_d = dryrun_step(cfg, InputShape("decode", "decode", S, B), meta,
+                        peaks=name)
+    prog = steps.make_decode_step(cfg, make_host_mesh(1, 1, device=device),
+                                  global_batch=B)
+    params = prog.model.init(torch.Generator(device=device).manual_seed(
+        SEED))
+    cache = prog.model.init_cache(B, S)
+    tok = {"token": torch.ones((B, 1), dtype=torch.int32, device=device),
+           "pos": torch.full((B,), S - 32, dtype=torch.int32,
+                             device=device)}
+    peak_d, before_d = _card_peak(prog.step, params, tok, cache)
+    lines.append(_dryrun_line("decode", dry_d, peak_d, before_d, card, {
+        "batch": B, "cache": S, "dtype": cfg.dtype}))
+    del prog, params, cache
+    free_card()
+    return lines, seen, launches
+
+
+def _dryrun_line(step: str, dry: dict, peak: int, before: int, card: str,
+                 extra: dict) -> dict:
+    mem = dry["memory"]
+    return {"phase": "dryrun", "part": "vs_card", "step": step,
+            "arch": TRAIN_ARCH, "world": 1, **extra,
+            "predicted_peak_bytes": mem["peak_bytes"],
+            "max_memory_allocated": peak,
+            "peak_rel_err": abs(mem["peak_bytes"] - peak) / peak,
+            "predicted_argument_bytes": mem["argument_bytes"],
+            "memory_allocated_before": before,
+            "flops": dry["roofline"].flops,
+            "kernel_calls": dry["kernel_calls"],
+            "meta_run_s": dry["seconds"], "card": card}
+
+
+def _dryrun_vs_ranks(card: str, gloo_counts: dict) -> list:
+    """(c) the dist phase's gloo steps recorded on rank 0 of a 2x2 (and a
+    (1, 4)) RecordingMesh on meta: every op's calls and bytes equal to
+    what the real ranks counted."""
+    from repro_torch import dist as D
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import RecordingMesh
+    from repro_torch.launch.serve import pad_cache
+    from repro_torch.optim import AdamW
+
+    def meta(shape):
+        return torch.empty(shape, dtype=torch.int32, device="meta")
+    lines = []
+    for run, kw in (("tp_dp", {}), ("fsdp", {"fsdp": True})):
+        opt = AdamW(lr=DIST_LR)
+        prog = steps.make_train_step(
+            _dist_cfg("float32", **kw), RecordingMesh(("data", "model"),
+                                                      (2, 2)), opt,
+            global_batch=DIST_GLOO_BATCH, lp_clip=True)
+        params = prog.model.param_tree()
+        bt = {k: meta((DIST_GLOO_BATCH, DIST_GLOO_SEQ))
+              for k in ("tokens", "labels")}
+        D.reset_counts()
+        prog.step(params, opt.init(params), bt, {})
+        lines.append((run, D.counts()))
+    mesh = RecordingMesh(("data", "model"), (1, 4))
+    cfg = _dist_cfg("float32")
+    pre = steps.make_prefill_step(cfg, mesh, global_batch=DIST_SERVE_BATCH)
+    dec = steps.make_decode_step(cfg, mesh, global_batch=DIST_SERVE_BATCH,
+                                 model=pre.model)
+    params = pre.model.param_tree()
+    D.reset_counts()
+    _, cache = pre.step(params, {"tokens": meta((DIST_SERVE_BATCH,
+                                                 DIST_SERVE_PROMPT))})
+    cache = pad_cache(cache, DIST_SERVE_DECODE)
+    for _ in range(DIST_SERVE_DECODE):
+        _, cache = dec.step(params, {"token": meta((DIST_SERVE_BATCH, 1)),
+                                     "pos": meta((DIST_SERVE_BATCH,))},
+                            cache)
+    lines.append(("serve", D.counts()))
+    out = []
+    for run, rec in lines:
+        out.append({"phase": "dryrun", "part": "vs_ranks", "run": run,
+                    "arch": DIST_ARCH, "world": DIST_GLOO_WORLD,
+                    "mesh": [1, 4] if run == "serve" else [2, 2],
+                    "recorded": rec, "real_ranks": gloo_counts[run],
+                    "equal": rec == gloo_counts[run], "card": card})
+    return out
+
+
+def phase_dryrun(device, card: str, gloo_counts: dict) -> dict:
+    """(a) the sweep, (b) the dry run against the card at world 1, (c)
+    the record transport against the dist phase's real ranks.  Every line
+    is printed, then any failed check fails the phase.  Returns the card
+    train step's LP batch, its rgb_cuda launches and the seconds."""
+    t0 = time.perf_counter()
+    name = torch.cuda.get_device_name(0)
+    _dryrun_sweep(card, name)
+    card_lines, seen, launches = _dryrun_vs_card(device, card, name)
+    rank_lines = _dryrun_vs_ranks(card, gloo_counts)
+    seconds = time.perf_counter() - t0
+    for line in card_lines + rank_lines:
+        emit(line)
+    emit({"phase": "dryrun", "part": "done", "seconds": seconds,
+          "card": card})
+    train, decode = card_lines
+    check(train["peak_rel_err"] <= DRYRUN_MEM_RTOL
+          and decode["peak_rel_err"] <= DRYRUN_MEM_RTOL,
+          f"dryrun: predicted peaks off the card's by "
+          f"{train['peak_rel_err']} (train), {decode['peak_rel_err']} "
+          f"(decode)")
+    check(train["flops"] == train["count_call_flops"],
+          f"dryrun FLOPs {train['flops']} != count_call's "
+          f"{train['count_call_flops']}")
+    check(train["kernel_calls"] == {"repro_torch::rgb": 1}
+          and launches == 1 and len(seen) == 1,
+          f"dryrun: {train['kernel_calls']} recorded, {launches} launches "
+          f"on the card")
+    bad = [ln["run"] for ln in rank_lines if not ln["equal"]]
+    check(not bad, f"dryrun: recorded collectives differ from the real "
+          f"ranks' on {bad}")
+    return {"lp_batch": seen[0], "launches": launches, "seconds": seconds}
 
 def main() -> int:
     if len(sys.argv) > 2 and sys.argv[1] == "--dist-rank":
@@ -2522,7 +2816,8 @@ def main() -> int:
         train, lp_batch = phase_train(device, card)
         train_ssm, lp_batch_ssm = phase_train_ssm(device, card)
         phase_lm_serve(device, card)
-        dist_lp, dist_launches, _ = phase_dist(device, card)
+        dist_lp, dist_launches, _, gloo_counts = phase_dist(device, card)
+        dry = phase_dryrun(device, card, gloo_counts)
         # Launches made from here on compare and time; the counts of the
         # main path have been read.
         entries.append(phase_train_kernel(device, card, lp_batch,
@@ -2532,6 +2827,8 @@ def main() -> int:
                                           path="train-mamba2"))
         entries.append(phase_train_kernel(device, card, dist_lp,
                                           dist_launches, path="dist"))
+        entries.append(phase_train_kernel(device, card, dry["lp_batch"],
+                                          dry["launches"], path="dryrun"))
         entries += phase_serve_kernels(device, card, serve["exec_specs"])
         entries += phase_serve_kernels(device, card, rpc["exec_specs"],
                                        path="rpc")

@@ -32,6 +32,13 @@ slice.
 
 Every collective issued is counted by op: calls and bytes of the payload
 each rank puts in (:func:`counts`, :func:`reset_counts`).
+
+The ``"record"`` transport (a :class:`~repro_torch.launch.mesh.
+RecordingMesh`, ``mesh.backend == "record"``) issues nothing: each
+collective is counted as above, recorded in the reference's convention
+(:func:`recorded`), and returns an empty tensor of its result's shape.  It
+takes ``meta`` tensors only (a dry run's), and raises on any other: a
+collective over real data must not come back with made-up values.
 """
 from __future__ import annotations
 
@@ -48,8 +55,10 @@ _COUNTS: Dict[str, Dict[str, int]] = collections.defaultdict(
 
 
 def reset_counts() -> None:
-    """Set every collective's count to 0."""
+    """Set every collective's count, and the record transport's log, to
+    0."""
     _COUNTS.clear()
+    _RECORDED.clear()
 
 
 def counts() -> Dict[str, Dict[str, int]]:
@@ -62,6 +71,56 @@ def _count(op: str, t: torch.Tensor) -> None:
     c = _COUNTS[op]
     c["calls"] += 1
     c["bytes"] += t.numel() * t.element_size()
+
+
+# The record transport's log, in the reference's convention
+# (``repro.roofline.collective_bytes`` reads its HLO so): XLA's op names,
+# the bytes of each call's *result* (an all-gather's gathered tensor, a
+# reduce-scatter's piece), by the axes each call ran over.
+_HLO_OP = {"all_reduce": "all-reduce", "all_reduce_max": "all-reduce",
+           "psum_int8": "all-gather", "all_gather": "all-gather",
+           "reduce_scatter": "reduce-scatter",
+           "ppermute": "collective-permute"}
+_RECORDED: Dict[str, Dict] = {}
+
+
+def recorded() -> Dict[str, Dict]:
+    """``{hlo_op: {"calls": n, "bytes": b, "by_axes": {"data,model": b}}}``:
+    what the record transport took since the last :func:`reset_counts`
+    (``bytes`` are each call's result bytes on this rank)."""
+    return {k: {"calls": v["calls"], "bytes": v["bytes"],
+                "by_axes": dict(v["by_axes"])}
+            for k, v in sorted(_RECORDED.items())}
+
+
+def coll_by_op(rec: Dict[str, Dict]) -> Dict[str, int]:
+    """``{hlo_op: bytes}`` of a :func:`recorded` log: the form of the
+    reference's ``Roofline.coll_by_op``."""
+    return {k: v["bytes"] for k, v in rec.items()}
+
+
+def _recording(mesh, t: torch.Tensor) -> bool:
+    if mesh.backend != "record":
+        return False
+    if t.device.type != "meta":
+        raise ValueError(f"the record transport takes meta tensors only, "
+                         f"not {t.device}: it moves no data")
+    return True
+
+
+def _record(op: str, axes: Axes, shape, like: torch.Tensor
+            ) -> torch.Tensor:
+    """Log one recorded call; its result: empty, of ``shape`` and
+    ``like``'s dtype and device."""
+    out = torch.empty(shape, dtype=like.dtype, device=like.device)
+    r = _RECORDED.setdefault(_HLO_OP[op], {"calls": 0, "bytes": 0,
+                                           "by_axes": {}})
+    nbytes = out.numel() * out.element_size()
+    r["calls"] += 1
+    r["bytes"] += nbytes
+    key = ",".join(axes)
+    r["by_axes"][key] = r["by_axes"].get(key, 0) + nbytes
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -84,7 +143,10 @@ def _all_reduce(mesh, axes: Axes, x: torch.Tensor, op: str = "sum"
     group = mesh.group(axes)
     if group is None:
         return x
-    _count("all_reduce" if op == "sum" else "all_reduce_max", x)
+    name = "all_reduce" if op == "sum" else "all_reduce_max"
+    _count(name, x)
+    if _recording(mesh, x):
+        return _record(name, axes, x.shape, x)
     rop = tdist.ReduceOp.SUM if op == "sum" else tdist.ReduceOp.MAX
     if _staged(mesh, x):
         h = _to_host(x)
@@ -102,8 +164,12 @@ def psum_int8(q: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
         return q.to(torch.int32)
     group = mesh.group(axes)
     _count("psum_int8", q)
+    n = mesh.size(axes)
+    if _recording(mesh, q):
+        _record("psum_int8", axes, (n,) + tuple(q.shape), q)
+        return torch.empty(q.shape, dtype=torch.int32, device=q.device)
     src = _to_host(q) if _staged(mesh, q) else q.contiguous()
-    parts = [torch.empty_like(src) for _ in range(mesh.size(axes))]
+    parts = [torch.empty_like(src) for _ in range(n)]
     tdist.all_gather(parts, src, group=group)
     return torch.stack(parts).to(torch.int32).sum(0).to(q.device)
 
@@ -116,6 +182,10 @@ def _all_gather(mesh, axes: Axes, x: torch.Tensor, dim: int) -> torch.Tensor:
         return x
     _count("all_gather", x)
     n = mesh.size(axes)
+    if _recording(mesh, x):
+        shape = list(x.shape)
+        shape[dim] *= n
+        return _record("all_gather", axes, shape, x)
     src = _to_host(x) if _staged(mesh, x) else x.contiguous()
     parts = [torch.empty_like(src) for _ in range(n)]
     tdist.all_gather(parts, src, group=group)
@@ -131,6 +201,9 @@ def _reduce_scatter(mesh, axes: Axes, x: torch.Tensor, dim: int
         return x
     _count("reduce_scatter", x)
     n, i = mesh.size(axes), mesh.index(axes)
+    if _recording(mesh, x):
+        return _record("reduce_scatter", axes, x.chunk(n, dim=dim)[i].shape,
+                       x)
     if mesh.backend == "gloo":
         h = _to_host(x) if x.is_cuda else x.contiguous().clone()
         tdist.all_reduce(h, group=group)
@@ -149,6 +222,8 @@ def _ppermute(mesh, axes: Axes, x: torch.Tensor,
     if group is None:
         return x if (0, 0) in perm else torch.zeros_like(x)
     _count("ppermute", x)
+    if _recording(mesh, x):
+        return _record("ppermute", axes, x.shape, x)
     me = mesh.index(axes)
     ranks = mesh.group_ranks(axes)
     staged = _staged(mesh, x)
@@ -380,6 +455,8 @@ def gather_leaf(x: torch.Tensor, spec, mesh) -> torch.Tensor:
 
 
 def barrier(mesh: Optional[object]) -> None:
-    """Wait for every rank of the mesh."""
-    if mesh is not None and tdist.is_initialized():
+    """Wait for every rank of the mesh (the record transport: nothing to
+    wait for)."""
+    if mesh is not None and mesh.backend != "record" \
+            and tdist.is_initialized():
         tdist.barrier()

@@ -33,14 +33,22 @@ tests use it, ``chip_smoke.py`` holds the kernel against it on the card,
 and the wrapper takes it for a tensor that lies on the CPU — and only
 then: for a CUDA tensor ``rgb_cuda`` launches the kernel or raises.
 ``rgb_cuda.launches`` counts kernel launches.
+
+``rgb_cuda`` calls the operator ``torch.ops.repro_torch.rgb``, so the
+dispatcher sees the kernel as one op: the CUDA implementation launches
+it, the CPU one runs ``rgb_plain``, and the fake (``meta``) one gives
+the outputs' shapes, which lets a dry run on ``meta`` tensors count the
+kernel (its bytes, and its FLOPs by the formula registered below).
 """
 from __future__ import annotations
 
 import ctypes
+import math
 import threading
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.core import oneD
 
@@ -323,11 +331,43 @@ def rgb_cuda(
     shared-memory opt-in raises.  On CPU tensors — and only there — the
     plain version runs instead.
     """
-    B, m_pad, T = _check_launch(L, c, m_valid, tile, chunk)
-    if L.device.type == "cpu":
-        return rgb_plain(L, c, m_valid, M=M, tile=T, chunk=chunk)
-    return _launch(L, c, m_valid, M, T,
-                   launch_geometry(m_pad, L.element_size(), T))
+    _, _, T = _check_launch(L, c, m_valid, tile, chunk)
+    return torch.ops.repro_torch.rgb(L, c, m_valid, float(M), T, chunk)
+
+
+@torch.library.custom_op("repro_torch::rgb", mutates_args=(),
+                         device_types="cuda")
+def _rgb_op(L: torch.Tensor, c: torch.Tensor, m_valid: torch.Tensor,
+            M: float, tile: int, chunk: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's launch on checked CUDA tensors."""
+    return _launch(L, c, m_valid, M, tile,
+                   launch_geometry(L.shape[2], L.element_size(), tile))
+
+
+@_rgb_op.register_kernel("cpu")
+def _rgb_op_cpu(L, c, m_valid, M, tile, chunk):
+    return rgb_plain(L, c, m_valid, M=M, tile=tile, chunk=chunk)
+
+
+@_rgb_op.register_fake
+def _rgb_op_fake(L, c, m_valid, M, tile, chunk):
+    B, _, _ = _check_launch(L, c, m_valid, tile, chunk)
+    return (L.new_empty((B, 2)),
+            L.new_empty((B, 1), dtype=torch.int32))
+
+
+def rgb_flops(B: int, m: int) -> float:
+    """The reference dry run's estimate of one batch's work
+    (``src/repro/launch/dryrun.py::dryrun_lp``): ~4 FLOPs a constraint
+    tested, and an expected ``2 ln m`` re-solves of ~12 m FLOPs each, a
+    problem."""
+    return B * (4.0 * m + 2 * math.log(max(m, 2)) * 12 * m)
+
+
+@register_flop_formula(torch.ops.repro_torch.rgb)
+def _rgb_flop_formula(L_shape, *args, **kwargs) -> int:
+    return int(rgb_flops(L_shape[0], L_shape[2]))
 
 
 def _launch(L, c, m_valid, M: float, tile: int, g: LaunchGeometry):

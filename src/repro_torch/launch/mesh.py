@@ -5,7 +5,10 @@ as ``(data, model)`` (or ``(pod, data, model)``); the port lays out the
 ranks of an initialised ``torch.distributed`` process group the same way,
 row-major, one rank a card (:class:`DistMesh`).  Without a process group
 the one mesh is :class:`HostMesh`, ``(1, 1)`` on one device, which every
-one-card caller uses.
+one-card caller uses.  A :class:`RecordingMesh` is one rank of a world of
+any size on ``meta``, with no process group: its collectives are recorded,
+not issued (the dry run's mesh, where the reference forces 512 host
+devices).
 
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --mesh 2,2 ...
 
@@ -36,32 +39,20 @@ class HostMesh:
     device: torch.device
 
 
-class DistMesh:
-    """The ranks of the initialised process group as a mesh of named axes
-    (row-major: the last axis varies fastest, as ``jax.make_mesh`` lays out
-    devices), with one process group for every set of axes larger than one
-    rank.  ``device`` is this rank's device."""
+class _AxesMesh:
+    """Named axes laid out row-major over ``world`` ranks (the last axis
+    varies fastest, as ``jax.make_mesh`` lays out devices), seen from
+    ``rank``: what a :class:`DistMesh` and a :class:`RecordingMesh`
+    share."""
 
     def __init__(self, axis_names: Tuple[str, ...], shape: Tuple[int, ...],
-                 device: torch.device):
-        world = tdist.get_world_size()
-        if math.prod(shape) != world:
-            raise ValueError(f"a {'x'.join(map(str, shape))} mesh needs "
-                             f"world size {math.prod(shape)}; the process "
-                             f"group has {world}")
+                 rank: int, device: torch.device):
         self.axis_names = tuple(axis_names)
         self.shape = tuple(shape)
-        self.rank = tdist.get_rank()
-        self.world = world
+        self.rank = rank
+        self.world = math.prod(self.shape)
         self.coords = tuple(int(c) for c in _unravel(self.rank, self.shape))
         self.device = device
-        self.backend = str(tdist.get_backend())
-        self._groups: Dict[Tuple[str, ...], tuple] = {}
-        live = [a for a, s in zip(self.axis_names, self.shape) if s > 1]
-        # every rank creates every group, in the same order
-        for r in range(1, len(live) + 1):
-            for axes in itertools.combinations(live, r):
-                self._groups[axes] = self._make_group(axes)
 
     def _key(self, axes) -> Tuple[str, ...]:
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
@@ -83,35 +74,16 @@ class DistMesh:
             out.append(_ravel(c, self.shape))
         return out
 
-    def _make_group(self, axes):
-        if len(axes) == len([s for s in self.shape if s > 1]):
-            ranks = self._members(axes, self.coords)
-            return tdist.group.WORLD, ranks
-        seen, lists = set(), []
-        for rank in range(self.world):
-            members = self._members(axes, _unravel(rank, self.shape))
-            if members[0] not in seen:
-                seen.add(members[0])
-                lists.append(members)
-        group, _ =tdist.new_subgroups_by_enumeration(lists,
-                                                      backend=self.backend)
-        return group, self._members(axes, self.coords)
-
     def size(self, axes) -> int:
         """Ranks along ``axes`` (1 for none)."""
         key = self._key(axes)
         return math.prod(self.shape[self.axis_names.index(a)] for a in key)
 
-    def group(self, axes):
-        """The process group over ``axes``; ``None`` where it is one rank."""
-        key = self._key(axes)
-        return self._groups[key][0] if key else None
-
     def group_ranks(self, axes) -> List[int]:
         """The global ranks of this rank's group over ``axes``, in index
         order."""
         key = self._key(axes)
-        return self._groups[key][1] if key else [self.rank]
+        return self._members(key, self.coords) if key else [self.rank]
 
     def index(self, axes) -> int:
         """This rank's index in its group over ``axes`` (``axis_index``)."""
@@ -123,8 +95,71 @@ class DistMesh:
     def __repr__(self) -> str:
         dims = ", ".join(f"{a}={s}" for a, s in zip(self.axis_names,
                                                     self.shape))
-        return (f"DistMesh({dims}; rank {self.rank} at {self.coords}, "
-                f"{self.backend}, {self.device})")
+        return (f"{type(self).__name__}({dims}; rank {self.rank} at "
+                f"{self.coords}, {self.backend}, {self.device})")
+
+
+class DistMesh(_AxesMesh):
+    """The ranks of the initialised process group as a mesh of named axes,
+    with one process group for every set of axes larger than one rank.
+    ``device`` is this rank's device."""
+
+    def __init__(self, axis_names: Tuple[str, ...], shape: Tuple[int, ...],
+                 device: torch.device):
+        world = tdist.get_world_size()
+        if math.prod(shape) != world:
+            raise ValueError(f"a {'x'.join(map(str, shape))} mesh needs "
+                             f"world size {math.prod(shape)}; the process "
+                             f"group has {world}")
+        super().__init__(axis_names, shape, tdist.get_rank(), device)
+        self.backend = str(tdist.get_backend())
+        self._groups: Dict[Tuple[str, ...], object] = {}
+        live = [a for a, s in zip(self.axis_names, self.shape) if s > 1]
+        # every rank creates every group, in the same order
+        for r in range(1, len(live) + 1):
+            for axes in itertools.combinations(live, r):
+                self._groups[axes] = self._make_group(axes)
+
+    def _make_group(self, axes):
+        if len(axes) == len([s for s in self.shape if s > 1]):
+            return tdist.group.WORLD
+        seen, lists = set(), []
+        for rank in range(self.world):
+            members = self._members(axes, _unravel(rank, self.shape))
+            if members[0] not in seen:
+                seen.add(members[0])
+                lists.append(members)
+        group, _ = tdist.new_subgroups_by_enumeration(lists,
+                                                      backend=self.backend)
+        return group
+
+    def group(self, axes):
+        """The process group over ``axes``; ``None`` where it is one rank."""
+        key = self._key(axes)
+        return self._groups[key] if key else None
+
+
+class RecordingMesh(_AxesMesh):
+    """Rank ``rank`` of a mesh of any size on ``meta``, with
+    :class:`DistMesh`'s interface and no process group: ``backend`` is
+    ``"record"``, so :mod:`repro_torch.dist` records each collective
+    instead of issuing it (``dist.recorded``).  A step built on it runs on
+    ``meta`` tensors and allocates nothing."""
+
+    backend = "record"
+
+    def __init__(self, axis_names: Tuple[str, ...], shape: Tuple[int, ...],
+                 *, rank: int = 0):
+        super().__init__(axis_names, shape, rank, torch.device("meta"))
+        if not 0 <= rank < self.world:
+            raise ValueError(f"rank {rank} is not in a world of "
+                             f"{self.world}")
+
+    def group(self, axes):
+        """The axes' key where they span more than one rank (what the
+        record transport logs), else ``None``."""
+        key = self._key(axes)
+        return key or None
 
 
 def _unravel(rank: int, shape) -> List[int]:
@@ -173,12 +208,16 @@ def _world() -> Optional[int]:
 
 
 def make_production_mesh(*, multi_pod: bool = False,
-                         device: DeviceLike = None) -> DistMesh:
+                         device: DeviceLike = None, record: bool = False):
     """Single pod: 16x16 = 256 ranks (data, model).  Multi-pod: 2 pods =
     512 ranks with a leading "pod" axis (outer data / hierarchical
-    all-reduce axis).  Raises unless the process group has that world."""
+    all-reduce axis).  Raises unless the process group has that world;
+    ``record=True`` gives rank 0 of it as a :class:`RecordingMesh`
+    instead (no process group, no device)."""
     shape = MULTI_POD_SHAPE if multi_pod else PRODUCTION_SHAPE
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if record:
+        return RecordingMesh(axes, shape)
     need = math.prod(shape)
     world = _world()
     if world != need:

@@ -255,24 +255,33 @@ def _leaf_paths(model) -> list:
 
 def device_memory_bytes(device: torch.device) -> int:
     """The memory of the device the weights would live on: a card's own
-    (``total_memory``), else the host's physical memory."""
+    (``total_memory``), else the host's physical memory.  ``meta`` has
+    none: a dry run passes the memory of the card it models."""
     if device.type == "cuda":
         return torch.cuda.get_device_properties(device).total_memory
+    if device.type == "meta":
+        raise ValueError("a meta device has no memory to ask: pass "
+                         "memory_bytes (roofline.Peaks.memory_bytes of the "
+                         "card a dry run models)")
     return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
 
 
 def _serve_cfg(cfg: ModelConfig, mi: MeshInfo,
                weight_resident: Optional[bool],
-               device: torch.device) -> ModelConfig:
+               device: torch.device,
+               memory_bytes: Optional[float] = None) -> ModelConfig:
     """Serving keeps weights resident (no per-token FSDP gather) whenever
     the tensor-parallel shard fits in 3/4 of the device's memory (the
     reference sizes this against a fixed TPU figure; the port asks the
-    device).  ``weight_resident``: None = decide so."""
+    device unless ``memory_bytes`` is given).  ``weight_resident``: None =
+    decide so."""
     if not cfg.fsdp:
         return cfg
     if weight_resident is None:
         shard = cfg.param_count() * 2 / max(mi.model_size, 1)
-        weight_resident = shard < 0.75 * device_memory_bytes(device)
+        if memory_bytes is None:
+            memory_bytes = device_memory_bytes(device)
+        weight_resident = shard < 0.75 * memory_bytes
     if weight_resident:
         return dataclasses.replace(cfg, fsdp=False)
     return cfg
@@ -280,14 +289,16 @@ def _serve_cfg(cfg: ModelConfig, mi: MeshInfo,
 
 def make_prefill_step(cfg: ModelConfig, mesh, *, global_batch: int,
                       weight_resident: Optional[bool] = None,
-                      model=None) -> Program:
+                      model=None,
+                      memory_bytes: Optional[float] = None) -> Program:
     """``step(params, batch) -> (last-position logits, cache)``: the
     global batch in, the global logits out, the cache this rank's shard.
     The model is built on ``mesh``'s device (parameters uninitialised)
     unless ``model`` is given: a model owns its parameters here, so the
-    prefill and decode programs of one server share one."""
+    prefill and decode programs of one server share one.
+    ``memory_bytes`` (default: the device's) sizes ``weight_resident``."""
     mi = mesh_info(mesh)
-    cfg = _serve_cfg(cfg, mi, weight_resident, mesh.device)
+    cfg = _serve_cfg(cfg, mi, weight_resident, mesh.device, memory_bytes)
     model = model if model is not None else build_model(
         cfg, mi, device=mesh.device)
     bax = batch_axes(mesh, global_batch)
@@ -301,13 +312,15 @@ def make_prefill_step(cfg: ModelConfig, mesh, *, global_batch: int,
 
 def make_decode_step(cfg: ModelConfig, mesh, *, global_batch: int,
                      weight_resident: Optional[bool] = None,
-                     model=None) -> Program:
+                     model=None,
+                     memory_bytes: Optional[float] = None) -> Program:
     """``step(params, {"token", "pos"}, cache) -> (logits, cache)``: one
     token a row (the global batch), written into this rank's ``cache`` in
     place (the reference donates the cache to its step; a caller who
-    needs the old cache clones it first)."""
+    needs the old cache clones it first).  ``memory_bytes`` as for
+    :func:`make_prefill_step`."""
     mi = mesh_info(mesh)
-    cfg = _serve_cfg(cfg, mi, weight_resident, mesh.device)
+    cfg = _serve_cfg(cfg, mi, weight_resident, mesh.device, memory_bytes)
     model = model if model is not None else build_model(
         cfg, mi, device=mesh.device)
     bax = batch_axes(mesh, global_batch)

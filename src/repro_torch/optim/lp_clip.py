@@ -144,13 +144,14 @@ def lp_constrain_updates(
 
     Returns (new_updates, mean_s1) — mean_s1 is a health metric: 1.0 means
     the trust region never binds.  ``method=None`` picks ``"kernel"`` for
-    tensors on a card and ``"rgb"`` on the CPU.  On a mesh ``leaf_axes``
+    tensors on a card, and on ``meta`` (a dry run models the card), and
+    ``"rgb"`` on the CPU.  On a mesh ``leaf_axes``
     (one tuple of axis names a leaf) says which axes shard each leaf.
     """
     stats = _leaf_stats(updates, grads, momenta, params, leaf_axes, mesh)
     A, b, c = _problems(stats, delta, lam)
     if method is None:
-        method = "kernel" if A.device.type == "cuda" else "rgb"
+        method = "kernel" if A.device.type in ("cuda", "meta") else "rgb"
     sol = get_solver(SolverSpec(backend=method, M=M_BOX),
                      device=A.device)(make_batch(A, b, c))
     s1 = torch.where(sol.feasible, sol.x[:, 0], 1.0)

@@ -10,20 +10,31 @@ call under two dispatch modes (:func:`count_call`)::
     collective = coll_bytes / (peaks.link_bytes_s)
 
 ``flops`` is ``torch.utils.flop_counter.FlopCounterMode``'s count (matrix
-products, convolutions and attention); ``hbm_bytes`` sums every aten op's
-input and output bytes, i.e. the unfused count, as XLA's CPU ``bytes
-accessed`` is.  On one card ``coll_by_op`` is empty: a call on one device
-moves nothing over a link.
+products, convolutions, attention, and the LP kernel ``repro_torch::rgb``
+by the reference's per-problem estimate); ``hbm_bytes`` sums every aten
+op's input and output bytes, i.e. the unfused count, as XLA's CPU ``bytes
+accessed`` is.  ``coll_by_op`` is what the record transport of
+:mod:`repro_torch.dist` logged during the call, in the reference's
+convention (XLA's op names, result bytes): a call on a
+:class:`~repro_torch.launch.mesh.RecordingMesh` fills it, and a call on one
+device leaves it empty (nothing crosses a link).  :func:`count_meta` also
+gives the high-water mark of live ``meta`` bytes (:class:`LiveBytes`): a
+dry run's peak memory per device.
 
 The analytic estimates (:func:`fused_hbm_estimate`, :func:`_cache_bytes`,
 :func:`model_flops_estimate`) are the reference's arithmetic, unchanged.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import weakref
 from typing import Any, Dict, NamedTuple
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch import dist as D
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,14 +45,15 @@ class Peaks:
     f64_flops: float        # FLOP/s outside the tensor cores
     hbm_bytes_s: float      # device memory, B/s
     link_bytes_s: float     # card-to-card link, B/s per direction
+    memory_bytes: float     # device memory, bytes (what a dry run fits to)
 
 
 # NVIDIA's data sheet for the H100 SXM part at its 700 W limit; NVLink 4
-# is 900 GB/s both ways, 450 GB/s per direction.
+# is 900 GB/s both ways, 450 GB/s per direction; 80 GB of HBM3.
 _PEAKS: Dict[str, Peaks] = {
     "NVIDIA H100 80GB HBM3": Peaks(bf16_flops=989e12, f32_flops=67e12,
                                    f64_flops=34e12, hbm_bytes_s=3.35e12,
-                                   link_bytes_s=450e9),
+                                   link_bytes_s=450e9, memory_bytes=80e9),
 }
 
 
@@ -139,7 +151,7 @@ def from_counts(flops: float, hbm_bytes: float, *, chips: int,
 class CallCount(NamedTuple):
     flops: float            # FlopCounterMode's total
     bytes: float            # every non-view aten op's input + output bytes
-    coll_by_op: Dict[str, int]
+    coll_by_op: Dict[str, int]   # the record transport's log of the call
     ran_on: str             # "meta", or the device the call fell back to
 
 
@@ -148,36 +160,190 @@ _NO_DATA = frozenset(("empty", "empty_like", "empty_strided", "new_empty",
                       "new_empty_strided"))
 
 
-def _tensor_bytes(obj) -> int:
+def tensor_bytes(obj) -> int:
+    """Bytes of the tensors in ``obj`` (nested lists, tuples and dicts;
+    a view counts its own elements)."""
     if isinstance(obj, torch.Tensor):
         return obj.numel() * obj.element_size()
     if isinstance(obj, (list, tuple)):
-        return sum(_tensor_bytes(o) for o in obj)
+        return sum(tensor_bytes(o) for o in obj)
     if isinstance(obj, dict):
-        return sum(_tensor_bytes(o) for o in obj.values())
+        return sum(tensor_bytes(o) for o in obj.values())
     return 0
 
 
-def _byte_counter():
-    """A ``TorchDispatchMode`` that sums each aten op's input and output
-    bytes; views (``func.is_view``) and allocations move nothing."""
-    from torch.utils._python_dispatch import TorchDispatchMode
+class _ByteCounter(TorchDispatchMode):
+    """Sums each aten op's input and output bytes; views
+    (``func.is_view``) and allocations move nothing."""
 
-    class _ByteCounter(TorchDispatchMode):
-        def __init__(self):
-            super().__init__()
-            self.total = 0
+    def __init__(self):
+        super().__init__()
+        self.total = 0
 
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            kwargs = kwargs or {}
-            out = func(*args, **kwargs)
-            if not func.is_view \
-                    and func.overloadpacket.__name__ not in _NO_DATA:
-                self.total += (_tensor_bytes(args) + _tensor_bytes(kwargs)
-                               + _tensor_bytes(out))
-            return out
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if not func.is_view \
+                and func.overloadpacket.__name__ not in _NO_DATA:
+            self.total += (tensor_bytes(args) + tensor_bytes(kwargs)
+                           + tensor_bytes(out))
+        return out
 
-    return _ByteCounter()
+
+def _tensors_in(tree, out=None) -> list:
+    out = [] if out is None else out
+    if isinstance(tree, torch.Tensor):
+        out.append(tree)
+    elif isinstance(tree, (list, tuple)):
+        for x in tree:
+            _tensors_in(x, out)
+    elif isinstance(tree, dict):
+        for x in tree.values():
+            _tensors_in(x, out)
+    return out
+
+
+class _MetaMemo(TorchDispatchMode):
+    """Outputs of functional ops on ``meta`` from a cache keyed by the
+    inputs' dtypes, shapes and strides and the other arguments: a meta op
+    computes only its outputs' metadata, which these determine, and many
+    elementwise ops compute it in Python (~0.1-0.3 ms an op).  A step
+    repeats its layers' ops (and chunked attention its blocks' ops), so
+    most calls hit.  An op that mutates, returns a view, returns anything
+    but tensors or gives an output sharing an input's storage is never
+    cached.  The innermost mode: the counters above it see each op as
+    ever.  ``calls`` counts the calls of ops outside ``aten`` (the
+    repository's kernels, ``repro_torch::rgb``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.cache: Dict[Any, Any] = {}
+        self.skip = set()
+        self.calls: Dict[str, int] = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func.namespace not in ("aten", "prims"):
+            name = func._schema.name
+            self.calls[name] = self.calls.get(name, 0) + 1
+        key = None
+        if func not in self.skip:
+            try:
+                key = (func, _meta_key(args), _meta_key(kwargs))
+            except TypeError:
+                key = None
+            else:
+                hit = self.cache.get(key)
+                if hit is not None:
+                    return _meta_build(hit)
+        out = func(*args, **kwargs)
+        if key is not None:
+            spec = _meta_spec(func, out, args, kwargs)
+            if spec is None:
+                self.skip.add(func)
+            else:
+                self.cache[key] = spec
+        return out
+
+
+_SCALARS = (int, float, bool, str, type(None), torch.dtype, torch.device,
+            torch.layout, torch.memory_format)
+
+
+def _meta_key(x):
+    if isinstance(x, torch.Tensor):
+        if x.device.type != "meta":
+            raise TypeError("not meta")
+        return (x.dtype, x.shape, x.stride())
+    if isinstance(x, (list, tuple)):
+        return (type(x),) + tuple(_meta_key(y) for y in x)
+    if isinstance(x, dict):
+        return tuple((k, _meta_key(v)) for k, v in sorted(x.items()))
+    if isinstance(x, _SCALARS):
+        return (type(x), x)
+    raise TypeError(type(x))
+
+
+def _meta_spec(func, out, args, kwargs):
+    """How to rebuild ``out``, or None where it must not be cached."""
+    schema = func._schema
+    if func.is_view or schema.is_mutable or any(
+            r.alias_info is not None for r in schema.returns):
+        return None
+    ins = {t.untyped_storage()._cdata for t in _tensors_in((args, kwargs))}
+
+    def spec(o):
+        if isinstance(o, torch.Tensor):
+            if o.device.type != "meta" or o.storage_offset() \
+                    or o.untyped_storage()._cdata in ins:
+                raise TypeError
+            return (o.shape, o.stride(), o.dtype)
+        if isinstance(o, (list, tuple)):
+            return (type(o), [spec(x) for x in o])
+        raise TypeError
+    try:
+        return spec(out)
+    except TypeError:
+        return None
+
+
+def _meta_build(spec):
+    if isinstance(spec[0], type):
+        return spec[0](_meta_build(x) for x in spec[1])
+    size, stride, dtype = spec
+    return torch.empty_strided(size, stride, dtype=dtype, device="meta")
+
+
+# The CUDA caching allocator gives every block a multiple of 512 bytes, and
+# ``torch.cuda.max_memory_allocated`` counts the blocks.
+ALLOC_ROUND = 512
+
+
+class LiveBytes(_MetaMemo):
+    """The high-water mark of live ``meta`` storage bytes over the ops run
+    under it: ``peak``.  A storage counts from the first op that touches
+    it (or from :meth:`track`, for a call's arguments) until it is freed,
+    rounded up as the card's allocator rounds it, so it models
+    ``torch.cuda.max_memory_allocated`` of the same call on the card.  Its
+    ops are served as :class:`_MetaMemo` serves them (one mode, not two:
+    each mode costs every op its own dispatch)."""
+
+    def __init__(self, roots=()):
+        super().__init__()
+        self.live = self.peak = 0
+        self._held: Dict[int, weakref.finalize] = {}
+        self.track(roots)
+
+    def track(self, tree) -> None:
+        """Count the storages of every tensor in ``tree`` (nested lists,
+        tuples and dicts) as live."""
+        for t in _tensors_in(tree):
+            if t.device.type == "meta":
+                self._hold(t.untyped_storage())
+        self.peak = max(self.peak, self.live)
+
+    def _hold(self, st) -> None:
+        key = st._cdata
+        if key in self._held:
+            return
+        n = -(-st.nbytes() // ALLOC_ROUND) * ALLOC_ROUND
+        self._held[key] = weakref.finalize(st, self._free, key, n)
+        self.live += n
+
+    def _free(self, key: int, n: int) -> None:
+        if self._held.pop(key, None) is not None:
+            self.live -= n
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        self.track((args, kwargs, out))
+        return out
+
+    def __exit__(self, *exc):
+        for f in self._held.values():
+            f.detach()
+        self._held.clear()
+        return super().__exit__(*exc)
 
 
 def _to_meta(obj):
@@ -185,6 +351,8 @@ def _to_meta(obj):
         t = torch.empty_like(obj, device="meta")
         return t.requires_grad_(obj.requires_grad) \
             if obj.is_leaf and obj.dtype.is_floating_point else t
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):  # NamedTuple
+        return type(obj)(*(_to_meta(o) for o in obj))
     if isinstance(obj, (list, tuple)):
         return type(obj)(_to_meta(o) for o in obj)
     if isinstance(obj, dict):
@@ -204,17 +372,51 @@ def _first_device(obj) -> str:
     return ""
 
 
-def _count(fn, args, kw) -> tuple:
+class MetaCount(NamedTuple):
+    flops: float            # FlopCounterMode's total
+    bytes: float            # every non-view aten op's input + output bytes
+    coll_by_op: Dict[str, int]   # the record transport's log of the call
+    peak_bytes: int         # LiveBytes' high water (0 when not asked for)
+    kernel_calls: Dict[str, int]  # calls of ops outside aten, by name
+    out: Any                # what the call returned
+
+
+def _recorded_since(before: Dict[str, Dict]) -> Dict[str, int]:
+    after = D.coll_by_op(D.recorded())
+    old = D.coll_by_op(before)
+    return {k: v - old.get(k, 0) for k, v in after.items()
+            if v - old.get(k, 0)}
+
+
+def count_meta(fn, args=(), kw=None, *, live: bool = True,
+               ops: bool = True) -> MetaCount:
+    """``fn(*args, **kw)`` as given (on ``meta`` tensors: nothing is
+    allocated) under the FLOP and byte counters (``ops``) and the
+    live-bytes one (``live``; the arguments live from the start); the
+    collectives the record transport logged during the call are
+    ``coll_by_op``.  A counter not asked for counts 0."""
     from torch.utils.flop_counter import FlopCounterMode
-    fc = FlopCounterMode(display=False)
-    bc = _byte_counter()
-    with fc, bc:
-        fn(*args, **kw)
-    return float(fc.get_total_flops()), float(bc.total)
+    kw = kw or {}
+    before = D.recorded()
+    fc = FlopCounterMode(display=False) if ops else None
+    bc = _ByteCounter() if ops else None
+    memo = LiveBytes((args, kw)) if live else _MetaMemo()
+    with contextlib.ExitStack() as stack:
+        # the memo (LiveBytes is one) innermost, under the counters
+        for mode in (memo, fc, bc):
+            if mode is not None:
+                stack.enter_context(mode)
+        out = fn(*args, **kw)
+    return MetaCount(flops=float(fc.get_total_flops()) if ops else 0.0,
+                     bytes=float(bc.total) if ops else 0.0,
+                     coll_by_op=_recorded_since(before),
+                     peak_bytes=memo.peak if live else 0,
+                     kernel_calls=dict(memo.calls), out=out)
 
 
 def count_call(fn, *args: Any, **kw: Any) -> CallCount:
-    """FLOPs and unfused bytes of ``fn(*args, **kw)``.
+    """FLOPs, unfused bytes and recorded collectives of ``fn(*args,
+    **kw)``.
 
     The call first runs on ``meta`` copies of every tensor argument
     (nested lists, tuples and dicts included), so a full-width count needs
@@ -222,12 +424,12 @@ def count_call(fn, *args: Any, **kw: Any) -> CallCount:
     value back to the host, it runs again on the arguments as given, and
     ``ran_on`` names their device."""
     try:
-        flops, nbytes = _count(fn, _to_meta(args), _to_meta(kw))
+        c = count_meta(fn, _to_meta(args), _to_meta(kw), live=False)
         ran_on = "meta"
     except (NotImplementedError, RuntimeError):
-        flops, nbytes = _count(fn, args, kw)
+        c = count_meta(fn, args, kw, live=False)
         ran_on = _first_device((args, kw)) or "cpu"
-    return CallCount(flops=flops, bytes=nbytes, coll_by_op={},
+    return CallCount(flops=c.flops, bytes=c.bytes, coll_by_op=c.coll_by_op,
                      ran_on=ran_on)
 
 

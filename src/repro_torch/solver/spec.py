@@ -204,7 +204,8 @@ class SolverSpec:
 
     def resolve(self, platform: Optional[str] = None) -> "SolverSpec":
         """Pin ``"auto"`` choices against ``platform`` (``"cuda"`` or
-        ``"cpu"``; default :func:`default_platform`) and canonicalise
+        ``"cpu"``, ``"meta"`` taken as ``"cuda"``; default
+        :func:`default_platform`) and canonicalise
         inert fields.
 
         Environment-dependent choices (``backend="auto"``,
@@ -217,6 +218,8 @@ class SolverSpec:
         :meth:`resolve_for_shape` where the input shape is known.
         """
         platform = platform or default_platform()
+        if platform == "meta":  # a dry run on meta tensors models the card
+            platform = "cuda"
         if platform not in ("cuda", "cpu"):
             raise ValueError(
                 f"platform={platform!r}; expected 'cuda' or 'cpu'")

@@ -66,12 +66,24 @@ def grads_case(meshes, inp, arch, shape, extra):
     return float(loss), unshard_params(prog.model, grads)
 
 
+def add_counts(total: dict, before: dict, after: dict) -> None:
+    """Add the collectives counted between two ``D.counts()`` to
+    ``total``."""
+    for op, c in after.items():
+        was = before.get(op, {"calls": 0, "bytes": 0})
+        if c["calls"] > was["calls"]:
+            t = total.setdefault(op, {"calls": 0, "bytes": 0})
+            for k in ("calls", "bytes"):
+                t[k] += c[k] - was[k]
+
+
 def train_case(mesh, inp, arch, n_steps, *, lp_clip=False,
-               manual_comm=False, compress_pod=False):
+               manual_comm=False, compress_pod=False, extra_cfg=None):
     """``n_steps`` train steps from the reference's init: each step's
-    loss and lp_s1, the step's LP batch (A, b, c) as numpy, and the
-    whole parameters after step 1 and at the end."""
-    cfg = cfg_of(arch, {})
+    loss and lp_s1, the step's LP batch (A, b, c) as numpy, the whole
+    parameters after step 1 and at the end, and the collectives the
+    steps issued (``counts``)."""
+    cfg = cfg_of(arch, extra_cfg or {})
     opt = AdamW(lr=1e-3)
     prog = steps.make_train_step(cfg, mesh, opt, global_batch=4,
                                  lp_clip=lp_clip, manual_comm=manual_comm,
@@ -88,23 +100,33 @@ def train_case(mesh, inp, arch, n_steps, *, lp_clip=False,
         return real(A, b, c, *a, **k)
     if lp_clip:
         lp_clip_mod.make_batch = spy
-    out = {"loss": [], "s1": [], "err_max": [], "err_ratio": []}
+    out = {"loss": [], "s1": [], "err_max": [], "err_ratio": [],
+           "counts": {}}
     real_cp = steps.compressed_psum
 
+    seen_cp = []
+
     def spy_cp(g, e, axis, mesh):
-        """compressed_psum, and each leaf's new residual over its scale
-        (at most one half: a rounding error)."""
+        """compressed_psum, its inputs and new residuals kept."""
         red, new_e = real_cp(g, e, axis, mesh)
-        for gi, ei, ni in zip(tree_leaves(g), tree_leaves(e),
-                              tree_leaves(new_e)):
-            amax = D.pmax(torch.amax(torch.abs(gi.float() + ei)), mesh,
-                          (axis,))
-            out["err_ratio"].append(float(ni.abs().max() / (amax / 127.0)))
+        seen_cp.append((g, e, new_e, axis, mesh))
         return red, new_e
     steps.compressed_psum = spy_cp
     try:
         for i in range(n_steps):
+            before = D.counts()
             params, state, m, extra = prog.step(params, state, batch, extra)
+            add_counts(out["counts"], before, D.counts())
+            # each leaf's new residual over its scale (at most one half: a
+            # rounding error), after the step's collectives are counted
+            for g, e, new_e, axis, cp_mesh in seen_cp:
+                for gi, ei, ni in zip(tree_leaves(g), tree_leaves(e),
+                                      tree_leaves(new_e)):
+                    amax = D.pmax(torch.amax(torch.abs(gi.float() + ei)),
+                                  cp_mesh, (axis,))
+                    out["err_ratio"].append(
+                        float(ni.abs().max() / (amax / 127.0)))
+            seen_cp.clear()
             out["loss"].append(float(m["loss"]))
             out["s1"].append(float(m["lp_s1"]))
             if manual_comm:
@@ -122,23 +144,30 @@ def train_case(mesh, inp, arch, n_steps, *, lp_clip=False,
 
 
 
-def serve_case(mesh, inp, arch, B):
-    """Prefill, then 4 teacher-forced decode steps: the logits of each."""
+def serve_case(mesh, inp, arch, B, counts=None):
+    """Prefill, then 4 teacher-forced decode steps: the logits of each;
+    ``counts`` (a dict), when given, gets the collectives of the prefill
+    and of the decode steps."""
     cfg = cfg_of(arch, {})
     prefill = steps.make_prefill_step(cfg, mesh, global_batch=B)
     model = prefill.model
     decode = steps.make_decode_step(cfg, mesh, global_batch=B, model=model)
     params = shard_params(model, inp["weights"][arch], mesh)
     s = inp["serve"][arch, B]
+    counts = {} if counts is None else counts
+    before = D.counts()
     logits, cache = prefill.step(params, tensors({"tokens": s["prompt"]}))
+    add_counts(counts.setdefault("prefill", {}), before, D.counts())
     out = [logits.numpy().copy()]
     cache = pad_cache(cache, s["next"].shape[1])
     P = s["prompt"].shape[1]
     for t in range(s["next"].shape[1]):
         tok = torch.from_numpy(s["next"][:, t:t + 1].copy())
         pos = torch.full((B,), P + t, dtype=torch.int32)
+        before = D.counts()
         logits, cache = decode.step(params, {"token": tok, "pos": pos},
                                     cache)
+        add_counts(counts.setdefault("decode", {}), before, D.counts())
         out.append(logits.numpy().copy())
     return out
 
@@ -237,6 +266,9 @@ def run_dist(inp, root: Path) -> dict:
     out["train_lp"] = train_case(meshes[(2, 2)], inp, "qwen2-0.5b", 5,
                                  lp_clip=True)
     out["train_counts"] = D.counts()
+    out["train_fsdp"] = train_case(
+        meshes[(2, 2)], inp, "granite-8b", 2, lp_clip=True,
+        extra_cfg={"fsdp": True, "fsdp_min_elems": 1})
     for manual in (False, True):
         out[("manual", manual)] = train_case(
             meshes[(2, 2)], inp, "qwen1.5-0.5b", 3, manual_comm=manual)
@@ -249,7 +281,9 @@ def run_dist(inp, root: Path) -> dict:
     for method in ("rgb", "naive"):
         out[("lp", method)] = lp_case(meshes[(2, 2)], inp, method)
     for arch, shape, B in inp["serve_cases"]:
-        out[("serve", arch, shape)] = serve_case(meshes[shape], inp, arch, B)
+        out[("serve_counts", arch, shape)] = counts = {}
+        out[("serve", arch, shape)] = serve_case(meshes[shape], inp, arch, B,
+                                                 counts)
     out["entry_points"] = entry_points_case(root)
     return out
 

@@ -43,14 +43,17 @@ from repro.solver import SolverSpec as RSolverSpec
 from repro.solver import get_solver as r_get_solver
 
 import _torch_dist_worker as W
+from repro_torch import dist as D
 from repro_torch.ckpt.checkpoint import Checkpointer
 from repro_torch.configs import ARCHS
 from repro_torch.core.lp import LPBatch
 from repro_torch.core.seidel import solve_naive, solve_rgb
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch import steps
+from repro_torch.launch.mesh import RecordingMesh, make_host_mesh
 from repro_torch.models import MeshInfo, build_model
 from repro_torch.models.transformer import params_to_numpy
-from repro_torch.optim import dequantize_int8, quantize_int8
+from repro_torch.optim import (AdamW, dequantize_int8, init_error_state,
+                               quantize_int8)
 
 RMI1 = RMeshInfo(model_size=1, data_size=1)
 B, S = 4, 32
@@ -209,6 +212,93 @@ def test_a_train_step_counts_its_collectives(world):
     assert counts["all_reduce"]["bytes"] > 0
     # the duplicated KV heads are gathered over the model axis to sync
     assert counts["all_gather"]["calls"] > 0
+
+
+# ---------------------------------------------------------------------------
+# The record transport against the real ranks
+# ---------------------------------------------------------------------------
+
+def _meta_batch(arch):
+    return {k: torch.empty(v.shape, dtype=torch.from_numpy(v).dtype,
+                           device="meta") for k, v in _batch(arch).items()}
+
+
+def _recorded_train(arch, axes, shape, n_steps, extra_cfg=None, **kw):
+    """``dist.counts()`` of ``n_steps`` train steps on rank 0 of a
+    RecordingMesh, on meta tensors (no weights: counts need none)."""
+    mesh = RecordingMesh(axes, shape)
+    opt = AdamW(lr=1e-3)
+    prog = steps.make_train_step(W.cfg_of(arch, extra_cfg or {}), mesh, opt,
+                                 global_batch=B, **kw)
+    params = prog.model.param_tree()
+    state = opt.init(params)
+    extra = ({"err": init_error_state(params)} if kw.get("manual_comm")
+             else {})
+    batch = _meta_batch(arch)
+    D.reset_counts()
+    for _ in range(n_steps):
+        params, state, _, extra = prog.step(params, state, batch, extra)
+    return D.counts()
+
+
+@pytest.mark.parametrize("case", ["tp_dp_lp_clip", "fsdp_lp_clip",
+                                  "pod_compressed", "pod_plain",
+                                  "manual_comm"])
+def test_recording_mesh_counts_what_the_ranks_issued(world, case):
+    """The same steps on rank 0 of a RecordingMesh, on meta: every op's
+    calls and bytes equal to what the four gloo ranks counted."""
+    real, args = {
+        "tp_dp_lp_clip": ("train_lp", ("qwen2-0.5b", ("data", "model"),
+                                       (2, 2), 5, None,
+                                       {"lp_clip": True})),
+        "fsdp_lp_clip": ("train_fsdp", (
+            "granite-8b", ("data", "model"), (2, 2), 2,
+            {"fsdp": True, "fsdp_min_elems": 1}, {"lp_clip": True})),
+        "pod_compressed": (("pod", True), (
+            "qwen1.5-0.5b", ("pod", "data", "model"), (2, 2, 1), 3, None,
+            {"manual_comm": True, "compress_pod": True})),
+        "pod_plain": (("pod", False), (
+            "qwen1.5-0.5b", ("pod", "data", "model"), (2, 2, 1), 3, None,
+            {"manual_comm": True})),
+        "manual_comm": (("manual", True), (
+            "qwen1.5-0.5b", ("data", "model"), (2, 2), 3, None,
+            {"manual_comm": True})),
+    }[case]
+    arch, axes, shape, n, extra_cfg, kw = args
+    counts = world[1][0][real]["counts"]
+    assert counts and all(c["calls"] > 0 for c in counts.values())
+    assert _recorded_train(arch, axes, shape, n, extra_cfg, **kw) == counts
+    for r in world[1][1:]:  # every rank issues the same collectives
+        assert r[real]["counts"] == counts
+
+
+@pytest.mark.parametrize("arch,shape,Bs", SERVE_CASES,
+                         ids=[f"{a}-{s[0]}x{s[1]}" for a, s, _ in SERVE_CASES])
+def test_recording_mesh_counts_what_serving_ranks_issued(world, arch, shape,
+                                                         Bs):
+    from repro_torch.launch.serve import pad_cache
+    real = world[1][0][("serve_counts", arch, shape)]
+    mesh = RecordingMesh(("data", "model"), shape)
+    cfg = W.cfg_of(arch, {})
+    pre = steps.make_prefill_step(cfg, mesh, global_batch=Bs)
+    dec = steps.make_decode_step(cfg, mesh, global_batch=Bs,
+                                 model=pre.model)
+    params = pre.model.param_tree()
+    s = _serve_inputs(arch, Bs)
+    rec = {}
+    D.reset_counts()
+    _, cache = pre.step(params, {"tokens": torch.empty(
+        s["prompt"].shape, dtype=torch.int32, device="meta")})
+    rec["prefill"] = D.counts()
+    cache = pad_cache(cache, s["next"].shape[1])
+    D.reset_counts()
+    for _ in range(s["next"].shape[1]):
+        _, cache = dec.step(params, {
+            "token": torch.empty((Bs, 1), dtype=torch.int32, device="meta"),
+            "pos": torch.empty((Bs,), dtype=torch.int32, device="meta")},
+            cache)
+    rec["decode"] = D.counts()
+    assert rec == real
 
 
 def test_manual_comm_matches_the_automatic_path(world):

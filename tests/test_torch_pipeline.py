@@ -57,6 +57,31 @@ def test_gpipe_moves_activations_point_to_point(world):
         assert c["ppermute"]["bytes"] == c["ppermute"]["calls"] * MB * D * 4
 
 
+def test_recording_mesh_counts_what_the_pipeline_ranks_issued(world):
+    """The same schedule on rank 0 of a RecordingMesh, on meta: the
+    collectives equal those of the four gloo ranks."""
+    from repro_torch import dist
+    from repro_torch.launch.mesh import RecordingMesh
+    from repro_torch.launch.pipeline import gpipe
+    mesh = RecordingMesh(("pipe",), (S,))
+    Wl = torch.empty((LPS, D, D), device="meta", requires_grad=True)
+    x = torch.empty((M, MB, D), device="meta")
+
+    def stage_fn(ws, h):
+        for w in ws:
+            h = torch.relu(h @ w)
+        return h
+
+    dist.reset_counts()
+    out = gpipe(stage_fn, Wl, x, n_stages=S, mesh=mesh)
+    (g,) = torch.autograd.grad(torch.sum(out ** 2), [Wl])
+    dist.gather_leaf(g[None], ("pipe",), mesh)
+    for r in world[1]:
+        assert dist.counts() == r["counts"]
+    rec = dist.recorded()["collective-permute"]
+    assert rec["calls"] == 2 * (M + S - 1) - 1
+
+
 def test_bubble_fraction():
     assert bubble_fraction(4, 8) == 3 / 11
     assert bubble_fraction(1, 8) == 0.0
