@@ -14,7 +14,8 @@ language models served at full width, the solve service's own benchmark in
 all its modes and the paper's crowd simulation at 16,384 agents — and,
 in its ``dist`` phase, trains and serves Qwen2-0.5B at full width on meshes
 of ranks over ``torch.distributed``, and in its ``dryrun`` phase counts
-every architecture's step on the 256- and 512-card production meshes —
+every architecture's step on the 256- and 512-card production meshes, and
+in its ``paper`` phase runs the paper's figure harness —
 and prints one JSON object per line:
 
 1. ``probe``   PyTorch / CUDA versions, device name and power limit, nvcc.
@@ -34,8 +35,8 @@ and prints one JSON object per line:
    is done at every shape, tile and chunk the serving and RPC runs really
    launched the kernel with (read from the scheduler's executable cache).
    The ``kernels`` line is printed once, near the end, with the launch
-   counts of phases 4, 5, 8, 8b-8d, 9, 9b, 11 and 12 (phase 10 launches
-   none).
+   counts of phases 4, 5, 8, 8b-8d, 9, 9b, 11, 12 and 13 (phase 10
+   launches none).
 4. ``solver``  ``SolverSpec(backend="auto").build().solve(...)`` on AoS and
    pre-packed batches: resolved to what the active tuning table names
    (the kernel on a miss), launch count advanced,
@@ -163,6 +164,23 @@ and prints one JSON object per line:
    joins the ``kernels`` line (``path="dryrun"``); (c) phase 11's gloo
    steps (2x2 TP+DP, 2x2 FSDP, (1, 4) serving) recorded on a
    ``RecordingMesh``: every op's calls and bytes equal to the ranks'.
+13. ``paper`` the paper's figure harness, ``benchmarks/pt_*.py``: every
+   figure of ``pt_run --full --plain-quick`` (fig3-fig7, solver_sweep and
+   the serving profiles; the plain ``rgb`` rows at the quick grid's shapes,
+   one timed call each), the kernel on each fig4 batch and fig5's copies
+   against the kernel's solve of each fig5 batch (those figures time naive
+   and plain rgb only), ``pt_pack_layout`` / ``pt_pdhg_crossover`` /
+   ``pt_tune_cli --smoke`` with their asserts, ``pt_hillclimb`` (three
+   processes; ``vma-transpose`` recorded ``no_counterpart``) and
+   ``pt_roofline_report`` on the records phase 12 wrote: one line per part
+   with its rows, every kernel row's batch held against the naive backend
+   (``feasible`` equal, ``x`` within 1e-4) and where HiGHS ran against its
+   objective (2e-4 of max(1, |obj|)), one summary line per fig3 / fig4 shape
+   (µs per LP of kernel, naive, plain rgb and HiGHS on the named host CPU,
+   and the kernel's ratio to each), one per fig5 shape (the copies' share
+   beside the kernel's solve) and one per pdhg_crossover ``m``.  Every
+   geometry it launched ``rgb_cuda`` at joins the ``kernels`` line
+   (``path="paper"``).
 
 Every input is made from a fixed numpy seed.  Any failed check exits
 non-zero.  The last line is exactly
@@ -2779,6 +2797,284 @@ def phase_dryrun(device, card: str, gloo_counts: dict) -> dict:
           f"ranks' on {bad}")
     return {"lp_batch": seen[0], "launches": launches, "seconds": seconds}
 
+# ---------------------------------------------------------------------------
+# 13. paper: the figure harness (benchmarks/pt_*)
+# ---------------------------------------------------------------------------
+
+PAPER_FIGS = ("fig3", "fig4", "fig5", "fig6", "fig7", "solver_sweep",
+              "serve")
+PAPER_OBJ_RTOL = 2e-4     # kernel objective against HiGHS's, of max(1, |obj|)
+HILLCLIMB_TIMEOUT_S = 600
+HILLCLIMB_STATUS = {"vma-transpose": "no_counterpart",
+                    "weight-resident": "ok", "fused-psum": "ok"}
+
+
+class PaperHold:
+    """What the harness's rows solved: each kernel row's batch and spec,
+    each fig4 batch (the figure has no kernel row) and HiGHS's
+    objectives, by row prefix."""
+
+    def __init__(self):
+        self.kernel, self.fig4, self.scipy = [], [], {}
+
+    def __call__(self, name, lp, spec, objectives=None):
+        if spec is None:
+            self.scipy[name.rsplit("/", 1)[0]] = objectives
+        elif spec.backend == "kernel":
+            self.kernel.append((name, lp, spec))
+        elif name.startswith("fig4/") and spec.backend == "naive":
+            self.fig4.append((name.rsplit("/", 1)[0], lp))
+
+
+def _captured(fn, *args, **kw) -> tuple:
+    """``fn(*args, **kw)``'s value and the lines it printed."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kw)
+    return out, buf.getvalue().splitlines()
+
+
+def _split_lines(lines) -> dict:
+    """A harness run's output: CSV rows as ``[name, us, derived]``, JSON
+    rows, and the other lines."""
+    rows, js, notes = [], [], []
+    for ln in lines:
+        if ln.startswith("JSON "):
+            js.append(json.loads(ln[5:]))
+        elif ln.startswith("{"):
+            js.append(json.loads(ln))
+        elif (ln.count(",") >= 2 and not ln.startswith("#")
+              and ln != "name,us_per_call,derived"):
+            name, us, derived = ln.split(",", 2)
+            rows.append([name, float(us), derived])
+        else:
+            notes.append(ln)
+    return {"rows": rows, "json": js, "notes": notes}
+
+
+def _paper_drive(device, card: str, hold: PaperHold) -> dict:
+    """The main path of the phase: every figure of ``pt_run --full
+    --plain-quick``, the kernel on each fig4 batch and fig5's copies against
+    the kernel's solve (the figures time naive and plain rgb only), the
+    three ``--smoke`` modes, the hillclimb cells and the roofline report.
+    Each part's output is printed as it ends."""
+    from benchmarks import (pt_common, pt_fig5_transfer, pt_pack_layout,
+                            pt_pdhg_crossover, pt_roofline_report, pt_run,
+                            pt_tune_cli)
+    from repro_torch.solver import SolverSpec
+
+    out: dict = {"figures": {}, "fig4_kernel_s": {}, "fig5_kernel": [],
+                 "seconds": {}}
+    kernel = SolverSpec(backend="kernel", normalize=False)
+    solver = kernel.build(device)
+
+    def part(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        value, lines = _captured(fn, *args, **kw)
+        dt = time.perf_counter() - t0
+        out["seconds"][name] = dt
+        got = _split_lines(lines)
+        out["figures"][name] = got
+        emit({"phase": "paper", "part": name, "seconds": dt, **got,
+              "card": card})
+        return value
+
+    for fig in PAPER_FIGS:
+        part(fig, pt_run.main, ["--full", "--plain-quick", "--only", fig],
+             device=device, hold=hold)
+        if fig == "fig4":
+            for prefix, lp in hold.fig4:
+                out["fig4_kernel_s"][prefix] = pt_common.time_fn(
+                    solver.solve, lp, device=device)
+                hold.kernel.append((prefix + "/kernel", lp, kernel))
+        if fig == "fig5":  # the copies against the kernel's solve
+            for B, m in pt_fig5_transfer.FULL_GRID:
+                lp = pt_fig5_transfer.case(B, m, device)
+                hA, hb, hc, hL = pt_fig5_transfer.host_arrays(lp)
+                t = [pt_common.time_fn(pt_fig5_transfer.transfer, arrays,
+                                       device, iters=5, device=device)
+                     for arrays in ((hA, hb, hc), (hL, hc))]
+                t_k = pt_common.time_fn(solver.solve, lp, device=device)
+                out["fig5_kernel"].append({
+                    "shape": f"fig5/b{B}/m{m}", "transfer_ms": t[0] * 1e3,
+                    "transfer_packed_ms": t[1] * 1e3,
+                    "kernel_solve_ms": t_k * 1e3,
+                    "transfer_frac": t[0] / (t[0] + t_k),
+                    "transfer_frac_packed": t[1] / (t[1] + t_k)})
+                hold.kernel.append((f"fig5/b{B}/m{m}/kernel", lp, kernel))
+    part("pack_layout", pt_pack_layout.run, smoke=True, device=device,
+         hold=hold)
+    part("pdhg_crossover", pt_pdhg_crossover.run, smoke=True, device=device,
+         hold=hold)
+    part("tune", pt_tune_cli.run, smoke=True, device=device)
+    # the hillclimb cells as a user runs them, one process a cell
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH", "")]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "benchmarks.pt_hillclimb", "--peaks",
+         torch.cuda.get_device_name(0), "--jobs", "3"], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=HILLCLIMB_TIMEOUT_S)
+    out["seconds"]["hillclimb"] = time.perf_counter() - t0
+    if proc.returncode:
+        sys.stderr.write(proc.stdout[-6000:] + proc.stderr[-6000:])
+    check(proc.returncode == 0, f"pt_hillclimb exited {proc.returncode}")
+    emit({"phase": "paper", "part": "hillclimb",
+          "seconds": out["seconds"]["hillclimb"],
+          "lines": proc.stdout.splitlines()[-40:], "card": card})
+    out["report"] = part("roofline_report", pt_roofline_report.main)
+    return out
+
+
+def _paper_checks(device, hold: PaperHold) -> list:
+    """Each kernel row's batch against the naive backend on the same batch
+    (``feasible`` equal, ``x`` within 1e-4), and where HiGHS ran, its
+    objective within 2e-4 of max(1, |obj|)."""
+    lines = []
+    for name, lp, spec in hold.kernel:
+        k = spec.build(device).solve(lp)
+        n = dataclasses.replace(spec, backend="naive").build(
+            device).solve(lp)
+        ok = n.feasible
+        line = {"phase": "paper", "part": "check", "row": name,
+                "batch": lp.batch,
+                "feasible_mismatches": int((k.feasible != ok).sum()),
+                "max_abs_err_vs_naive": float(
+                    (k.x[ok] - n.x[ok]).abs().max()) if bool(ok.any())
+                else 0.0}
+        obj = hold.scipy.get(name.rsplit("/", 1)[0])
+        if obj is not None:
+            got = k.objective[:len(obj)].double().cpu().numpy()
+            kf = k.feasible[:len(obj)].cpu().numpy()
+            sf = ~np.isnan(obj)
+            line["scipy_problems"] = len(obj)
+            line["scipy_feasible_mismatches"] = int((kf != sf).sum())
+            line["scipy_obj_rel_err"] = float(
+                (np.abs(got[sf] - obj[sf])
+                 / np.maximum(1.0, np.abs(obj[sf]))).max()) if sf.any() \
+                else 0.0
+        lines.append(line)
+    return lines
+
+
+def _per_lp(rows: list) -> dict:
+    """``{row name: µs per LP}`` of the ``fig3``/``fig4`` rows (batch from
+    the name)."""
+    out = {}
+    for name, us, _ in rows:
+        B = int(re.search(r"/b(\d+)", name).group(1))
+        out[name] = us / B
+    return out
+
+
+def _paper_summaries(drive: dict, card: str, host: str) -> list:
+    """One line per fig3 / fig4 shape: µs per LP of kernel, naive, plain
+    rgb and HiGHS (the host CPU's), and the kernel's ratio to each; one
+    line per fig5 shape: the host-to-device copies against the kernel's
+    solve of the batch; one line per pdhg_crossover m: kernel against
+    pdhg."""
+    figs = drive["figures"]
+    per = _per_lp(figs["fig3"]["rows"] + figs["fig4"]["rows"])
+    for prefix, s in drive["fig4_kernel_s"].items():
+        B = int(re.search(r"/b(\d+)", prefix).group(1))
+        per[prefix + "/kernel"] = s * 1e6 / B
+    prefixes = sorted({n.rsplit("/", 1)[0] for n in per},
+                      key=lambda p: [int(v) for v in re.findall(r"\d+", p)])
+    lines = []
+    for p in prefixes:
+        us = {m: per.get(f"{p}/{m}")
+              for m in ("kernel", "naive", "rgb", "scipy-highs")}
+        k = us["kernel"]
+        lines.append({
+            "phase": "paper", "part": "summary", "shape": p,
+            "us_per_lp": us,
+            "kernel_speedup": {m: (v / k if k and v else None)
+                               for m, v in us.items() if m != "kernel"},
+            "fig4_kernel": "timed by this phase on the figure's batch"
+            if p.startswith("fig4/") else None,
+            "card": card, "host_cpu": host})
+    for row in drive["fig5_kernel"]:
+        lines.append({"phase": "paper", "part": "fig5_kernel", **row,
+                      "card": card})
+    by_m: dict = {}
+    for r in figs["pdhg_crossover"]["json"]:
+        by_m.setdefault(r["m"], {})[r["backend"]] = r["us_per_lp"]
+    for m, v in sorted(by_m.items()):
+        lines.append({"phase": "paper", "part": "kernel_vs_pdhg", "m": m,
+                      "batch": figs["pdhg_crossover"]["json"][0]["batch"],
+                      "us_per_lp": v,
+                      "pdhg_over_kernel": v["pdhg"] / v["kernel"],
+                      "card": card})
+    return lines
+
+
+def phase_paper(device, card: str) -> dict:
+    """The paper's figure harness on the card (``benchmarks/pt_*``), each
+    kernel row held against naive and HiGHS, the geometries it launched
+    ``rgb_cuda`` at counted.  Needs the dry-run records the ``dryrun``
+    phase wrote."""
+    from benchmarks.pt_common import host_cpu
+    from repro_torch.kernels.batch_lp import rgb_cuda
+    from repro_torch.launch.dryrun import RESULTS_DIR
+
+    check((RESULTS_DIR / "dryrun.json").exists(),
+          "paper: no dry-run records to report on")
+    hold = PaperHold()
+    t0 = time.perf_counter()
+    rgb_cuda.launches = 0
+    rgb_cuda.geometries.clear()
+    drive = _paper_drive(device, card, hold)
+    launches, geometries = rgb_cuda.launches, dict(rgb_cuda.geometries)
+    drive_s = time.perf_counter() - t0
+    checks = _paper_checks(device, hold)
+    for line in checks + _paper_summaries(drive, card, host_cpu()):
+        emit(line)
+    bad = [c["row"] for c in checks
+           if c["feasible_mismatches"]
+           or c["max_abs_err_vs_naive"] > X_TOL["float32"]
+           or c.get("scipy_feasible_mismatches")
+           or c.get("scipy_obj_rel_err", 0.0) > PAPER_OBJ_RTOL]
+    check(not bad, f"paper: kernel rows off naive or HiGHS: {bad}")
+    check(len(checks) >= 20, f"paper: only {len(checks)} kernel rows held")
+    with open(RESULTS_DIR / "dryrun.json") as f:
+        variants = {(r["arch"], r["shape"], r["variant"]): r["status"]
+                    for r in json.load(f)
+                    if r.get("variant", "baseline") != "baseline"
+                    and r["variant"] in HILLCLIMB_STATUS}
+    check(len(variants) == 5 and all(
+        st == HILLCLIMB_STATUS[k[2]] for k, st in variants.items()),
+        f"paper: hillclimb cells {variants}")
+    report = "\n".join(drive["report"])
+    check("FAILED=0" in report and "| FAILED |" not in report
+          and report.count("| no counterpart |") == 2,
+          "paper: the roofline report shows a failed cell")
+    check(launches == sum(geometries.values()) and launches > 0,
+          f"paper: {launches} launches, by geometry {geometries}")
+    emit({"phase": "paper", "part": "done", "seconds":
+          time.perf_counter() - t0, "drive_s": drive_s,
+          "by_part_s": drive["seconds"], "rgb_cuda_launches": launches,
+          "geometries": len(geometries), "kernel_rows_held": len(checks),
+          "card": card})
+    return {"geometries": geometries, "launches": launches}
+
+
+def phase_paper_kernels(device, card: str, geometries: dict) -> list:
+    """A ``kernels`` entry (``path="paper"``) for every geometry the paper
+    phase launched ``rgb_cuda`` at, held against ``rgb_plain`` on a mixed
+    and a feasible batch of that shape, with its launch count."""
+    entries = []
+    for i, ((B, m_pad, dtype, tile), n) in enumerate(
+            sorted(geometries.items())):
+        inputs = check_inputs(np.random.default_rng([SEED, 13, i]), B, m_pad)
+        e = hold_and_time(device, card, inputs, B, m_pad, dtype, tile, 0,
+                          "paper", {})
+        e["launches"] = n
+        entries.append(e)
+    return entries
+
+
 def main() -> int:
     if len(sys.argv) > 2 and sys.argv[1] == "--dist-rank":
         return dist_rank_main(sys.argv[2:])
@@ -2818,6 +3114,7 @@ def main() -> int:
         phase_lm_serve(device, card)
         dist_lp, dist_launches, _, gloo_counts = phase_dist(device, card)
         dry = phase_dryrun(device, card, gloo_counts)
+        paper = phase_paper(device, card)
         # Launches made from here on compare and time; the counts of the
         # main path have been read.
         entries.append(phase_train_kernel(device, card, lp_batch,
@@ -2829,6 +3126,7 @@ def main() -> int:
                                           dist_launches, path="dist"))
         entries.append(phase_train_kernel(device, card, dry["lp_batch"],
                                           dry["launches"], path="dryrun"))
+        entries += phase_paper_kernels(device, card, paper["geometries"])
         entries += phase_serve_kernels(device, card, serve["exec_specs"])
         entries += phase_serve_kernels(device, card, rpc["exec_specs"],
                                        path="rpc")

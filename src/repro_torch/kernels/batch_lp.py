@@ -398,10 +398,14 @@ def _launch(L, c, m_valid, M: float, tile: int, g: LaunchGeometry):
         raise RuntimeError(
             f"rgb_cuda: launch refused (cuda error {code}: {msg}) for "
             f"B={B} m_pad={m_pad} tile={tile} {L.dtype} {g}")
+    key = (B, m_pad, str(L.dtype).removeprefix("torch."), tile)
     with _launch_lock:
         rgb_cuda.launches += 1
+        rgb_cuda.geometries[key] = rgb_cuda.geometries.get(key, 0) + 1
     return x, feas
 
 
-# Kernel launches made by this process (plain-version calls do not count).
+# Kernel launches made by this process (plain-version calls do not count):
+# in all, and by ``(B, m_pad, dtype, tile)``.
 rgb_cuda.launches = 0
+rgb_cuda.geometries = {}

@@ -4,7 +4,9 @@ its plain PyTorch version on the same tensors, and the main paths on the card
 LP-clipped training step, train steps card against CPU, a bf16 checkpoint
 round trip, the MoE layer, the SSD scan and a decode step of every family
 card against CPU, the serving entry point on the card, the serving
-benchmark with the kernel backend, the crowd simulation's two paths).
+benchmark with the kernel backend, the crowd simulation's two paths), and
+two checks too slow for the CPU suite: the pdhg tail of the cross-backend
+property sweep and float64 pdhg against HiGHS.
 
 Run them on a machine with a Hopper card and ``nvcc``::
 
@@ -656,3 +658,98 @@ def test_crowd_sim_direct_and_served_on_the_card(card):
     served = crowd.main(["--agents", "512", "--steps", "10"], device=card)
     assert served["lines"] == direct["lines"]
     assert float((served["pos"] - direct["pos"]).abs().max()) <= 1e-5
+
+
+# -- held on the card rather than on the CPU: each takes ~6 s an infeasible
+# -- example (pdhg runs to its iteration budget) where there is no card -----
+
+def test_backends_agree_property_with_the_pdhg_tail(card):
+    """``test_torch_solver.py``'s cross-backend sweep on the card, with the
+    pdhg tail it leaves out: naive, rgb (dense and chunked) and the kernel,
+    each shuffling with the spec's seed, agree on feasibility and on the
+    objective to 5e-4; pdhg at ``tol=1e-5`` agrees with them on
+    feasibility and on the objective to 2e-3 (the reference's tolerance for
+    the tail, ``tests/test_solver.py``)."""
+    from _hypothesis_compat import given, settings, st
+
+    @settings(max_examples=10, deadline=None)
+    @given(kind=st.sampled_from(("random", "ragged", "infeasible")),
+           seed=st.integers(0, 2**30), batch=st.integers(1, 12),
+           m=st.integers(3, 40))
+    def prop(kind, seed, batch, m):
+        g = torch.Generator().manual_seed(seed)
+        if kind == "random":
+            lp = random_feasible_lp(g, batch, m, device="cpu")
+        elif kind == "ragged":
+            lp = ragged_feasible_lp(g, batch, max(m, 5), m_min=2,
+                                    device="cpu")
+        else:
+            lp = infeasible_lp(batch, m, device="cpu")
+        sweep = (
+            SolverSpec(backend="naive", shuffle=True, seed=seed),
+            SolverSpec(backend="rgb", shuffle=True, seed=seed),
+            SolverSpec(backend="rgb", tile=8, chunk=64, shuffle=True,
+                       seed=seed),
+            SolverSpec(backend="kernel", shuffle=True, seed=seed),
+            SolverSpec(backend="kernel", chunk=128, dtype="float64"),
+            SolverSpec(backend="pdhg", tol=1e-5),
+        )
+        n0 = rgb_cuda.launches
+        sols = [s.build(device=card).solve(lp) for s in sweep]
+        assert rgb_cuda.launches == n0 + 2
+        ref = sols[0]
+        feas = ref.feasible.cpu().numpy()
+        assert bool(feas.any()) == (kind != "infeasible")
+        for spec, sol in zip(sweep[1:], sols[1:]):
+            assert sol.x.device == card
+            np.testing.assert_array_equal(sol.feasible.cpu().numpy(), feas,
+                                          err_msg=str(spec))
+            tol = 2e-3 if spec.backend == "pdhg" else 5e-4
+            np.testing.assert_allclose(
+                sol.objective.cpu().numpy()[feas],
+                ref.objective.cpu().numpy()[feas], rtol=tol, atol=tol,
+                err_msg=str(spec))
+    prop()
+
+
+def test_float64_pdhg_on_the_card_matches_scipy(card):
+    """The port's twin of ``test_float64_validation.py``'s pdhg snippet, on
+    the card: float64 pdhg against HiGHS on adversarial, ragged and
+    infeasible batches (feasibility equal, objective within 1e-6 (1 +
+    |obj|)), and at m=2048 the certificate itself under 1e-6 (converged,
+    primal residual, KKT residual)."""
+    linprog = pytest.importorskip("scipy.optimize").linprog
+    from repro_torch.core import pack
+    from repro_torch.pdhg import solve_pdhg_with_stats
+    f64 = torch.float64
+    g = torch.Generator(device=card)
+    batches = {
+        "adversarial": adversarial_lp(4, 24, dtype=f64, device=card),
+        "ragged": ragged_feasible_lp(g.manual_seed(5), 6, 18, m_min=3,
+                                     dtype=f64, device=card),
+        "infeasible": infeasible_lp(3, 8, dtype=f64, device=card),
+        "big-m": random_feasible_lp(g.manual_seed(11), 4, 2048, dtype=f64,
+                                    device=card),
+    }
+    solver = SolverSpec(backend="pdhg", dtype="float64").build(card)
+    for name, lp in batches.items():
+        A, b = lp.A.cpu().numpy(), lp.b.cpu().numpy()
+        c, mv = lp.c.cpu().numpy(), lp.m_valid.cpu().numpy()
+        ref_feas, ref_obj = [], []
+        for i in range(A.shape[0]):
+            res = linprog(-c[i], A_ub=A[i, :mv[i]], b_ub=b[i, :mv[i]],
+                          bounds=[(-M, M), (-M, M)], method="highs")
+            ref_feas.append(res.status == 0)
+            ref_obj.append(-res.fun if res.status == 0 else np.nan)
+        sol = solver.solve(lp)
+        assert sol.x.dtype == f64 and sol.x.device == card, name
+        assert sol.feasible.cpu().tolist() == ref_feas, name
+        obj = sol.objective.cpu().numpy()
+        for i, ok in enumerate(ref_feas):
+            if ok:
+                assert abs(obj[i] - ref_obj[i]) <= 1e-6 * (
+                    1.0 + abs(ref_obj[i])), (name, i, obj[i], ref_obj[i])
+    _, st = solve_pdhg_with_stats(pack(batches["big-m"]))
+    assert bool(st.converged.all()), st.kkt
+    assert float(st.primal_res.max()) <= 1e-6
+    assert float(st.kkt.max()) <= 1e-6
