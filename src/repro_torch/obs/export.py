@@ -16,7 +16,10 @@ flat ``{"traceEvents": [...]}`` list.  We render:
   little chains instead of a single malformed stack.
 
 Timestamps are microseconds relative to the earliest span in the
-export (Chrome wants small positive ``ts``).
+export (Chrome wants small positive ``ts``), or to a given ``base`` on
+the spans' clock: :class:`~repro_torch.obs.profiler.ProfileSession`
+passes the ``perf_counter`` time of its profiler trace's zero, so the
+spans land on that trace's clock.
 
 :func:`device_idle` turns the per-device ``device.solve`` tracks into
 the *measured* idle fraction: union the busy intervals per device,
@@ -53,12 +56,15 @@ def _us(t: float, t0: float) -> float:
     return round((t - t0) * 1e6, 3)
 
 
-def to_chrome_trace(spans: Sequence[Span]) -> Dict[str, Any]:
-    """Render a span snapshot as a Chrome ``trace_event`` object."""
+def to_chrome_trace(spans: Sequence[Span],
+                    base: Optional[float] = None) -> Dict[str, Any]:
+    """Render a span snapshot as a Chrome ``trace_event`` object; ``ts``
+    counts from ``base`` (``perf_counter`` seconds), by default the
+    earliest span's start."""
     spans = [s for s in spans if s.t_end >= s.t_start]
     if not spans:
         return {"traceEvents": [], "displayTimeUnit": "ms"}
-    t0 = min(s.t_start for s in spans)
+    t0 = min(s.t_start for s in spans) if base is None else base
     events: List[Dict[str, Any]] = []
 
     def meta(tid: int, name: str, sort: int) -> None:
@@ -120,9 +126,14 @@ def write_chrome_trace(spans: Sequence[Span], path: str) -> None:
         json.dump(to_chrome_trace(spans), f)
 
 
+# Phases a torch.profiler trace adds to ours: instants, counters, flows.
+_OTHER_PHASES = ("i", "I", "C", "s", "t", "f")
+
+
 def validate_chrome_trace(obj: Dict[str, Any]) -> None:
-    """Structural check of an exported trace object (tests/CI): raises
-    ValueError on anything Perfetto would choke on."""
+    """Structural check of an exported trace object (tests/CI), ours or a
+    profiler trace with our spans added: raises ValueError on anything
+    Perfetto would choke on."""
     if not isinstance(obj, dict) or "traceEvents" not in obj:
         raise ValueError("trace object needs a traceEvents list")
     events = obj["traceEvents"]
@@ -133,8 +144,10 @@ def validate_chrome_trace(obj: Dict[str, Any]) -> None:
         if not isinstance(e, dict):
             raise ValueError(f"event {i} is not an object")
         ph = e.get("ph")
-        if ph not in ("X", "M", "b", "e"):
+        if ph not in ("X", "M", "b", "e") + _OTHER_PHASES:
             raise ValueError(f"event {i}: unsupported phase {ph!r}")
+        if ph in _OTHER_PHASES:
+            continue
         if "pid" not in e:
             raise ValueError(f"event {i}: missing pid")
         if ph == "M":

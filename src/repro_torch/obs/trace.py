@@ -13,30 +13,57 @@ only when it *ends*; the :class:`SpanBuffer` ring retains the last N
 ended spans and counts what it dropped, so memory is bounded no matter
 how long the server runs.
 
-The overhead contract: a disabled :class:`Tracer` never allocates a
-span — every ``start_span``/``record`` call returns ``None`` after one
-plain counter bump (``noop_calls``), and ``spans_recorded`` stays 0.
-The serve bench asserts exactly that on its no-trace path.
+When a tracer records: an injected ``Tracer(enabled=True)`` always; the
+process default tracer (:func:`default_tracer`, what every component
+built without a tracer uses) while a ``torch.profiler`` session records,
+read from ``torch.autograd.profiler._is_profiler_enabled`` (process-wide:
+worker threads see it too).  A span started while recording is committed
+when it ends, whether or not recording has stopped by then, and so is a
+:meth:`Tracer.child` of it.
+
+A span that starts and ends on one thread can have a *twin*: a
+record-function range of the profiler named ``repro_torch.<span name>``,
+opened only while a profiler records, so the span also lands in the
+profiler's trace on the device's clock.
+
+The overhead contract: a tracer that is not recording never allocates a
+span — ``start_span``/``record``/:func:`open_span` return ``None`` after
+one flag read, and ``spans_started`` stays 0.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
 import dataclasses
-import os
+import random
 import threading
 import time
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from itertools import chain
+from typing import Any, ClassVar, Dict, Iterator, List, Optional, Tuple
+
+import torch
+from torch.autograd import profiler as _torch_profiler
 
 # Wire header carrying the trace context: "<32 hex>" (trace id alone)
 # or "<32 hex>-<16 hex>" (trace id + parent span id).
 TRACE_HEADER = "X-Trace-Id"
 
+# Prefix of a span's twin in a profiler trace.
+TWIN_PREFIX = "repro_torch."
+
 _HEX = set("0123456789abcdef")
 
 
 def _rand_hex(nbytes: int) -> str:
-    return os.urandom(nbytes).hex()
+    """``nbytes`` random bytes as hex, from the ``random`` module's
+    generator (seeded from the OS, and again in a forked child): a
+    fraction of ``os.urandom``'s system call."""
+    return "%0*x" % (2 * nbytes, random.getrandbits(8 * nbytes))
+
+
+# The record function a twin opens: the profiler's C++ one, at a tenth of
+# ``torch.profiler.record_function``'s cost; it shows as a ``cpu_op``.
+_Twin = torch._C._profiler._RecordFunctionFast
 
 
 def new_trace_context() -> "TraceContext":
@@ -93,6 +120,16 @@ class Span:
     t_start: float                 # perf_counter seconds
     t_end: float = 0.0
     attrs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # Not fields (class defaults, set per span while recording): the tracer
+    # whose ring the span goes to, and its twin while open (``True`` once
+    # closed; ``None``: the span has none).
+    _tracer: ClassVar[Any] = None
+    _twin: ClassVar[Any] = None
+
+    @property
+    def has_twin(self) -> bool:
+        """Whether the span has a twin in the profiler's trace."""
+        return self._twin is not None
 
     @property
     def duration_s(self) -> float:
@@ -118,20 +155,31 @@ class SpanBuffer:
     the common case, and correctness beats cleverness in the flight
     recorder's evidence store).  ``snapshot`` returns spans oldest to
     newest; ``dropped`` counts what the ring has already forgotten.
+
+    A slot holds a span as a tuple of plain values, which Python's
+    collector stops tracking while it is young: a full ring of a
+    recording server then adds nothing to a full collection's walk, nor
+    brings the next one sooner.  ``snapshot`` builds the spans anew.
     """
 
     def __init__(self, capacity: int = 16384):
         if capacity < 1:
             raise ValueError(f"capacity={capacity} < 1")
         self.capacity = int(capacity)
-        self._slots: List[Optional[Span]] = [None] * self.capacity
+        self._slots: List[Optional[tuple]] = [None] * self.capacity
         self._n = 0               # total spans ever appended
         self._lock = threading.Lock()
 
     def append(self, span: Span) -> None:
-        with self._lock:
-            self._slots[self._n % self.capacity] = span
-            self._n += 1
+        # Attributes flattened, so that no dict keeps ``rec`` tracked.
+        attrs = tuple(chain.from_iterable(span.attrs.items()))
+        rec = (span.trace_id, span.span_id, span.parent_id, span.name,
+               span.t_start, span.t_end, attrs, span._twin is not None)
+        lock = self._lock
+        lock.acquire()
+        self._slots[self._n % self.capacity] = rec
+        self._n += 1
+        lock.release()
 
     def __len__(self) -> int:
         with self._lock:
@@ -152,10 +200,11 @@ class SpanBuffer:
         with self._lock:
             n = self._n
             if n <= self.capacity:
-                return [s for s in self._slots[:n] if s is not None]
-            head = n % self.capacity
-            return ([s for s in self._slots[head:] if s is not None]
-                    + [s for s in self._slots[:head] if s is not None])
+                recs = self._slots[:n]
+            else:
+                head = n % self.capacity
+                recs = self._slots[head:] + self._slots[:head]
+        return [_span_of(r) for r in recs if r is not None]
 
     def clear(self) -> None:
         with self._lock:
@@ -163,56 +212,89 @@ class SpanBuffer:
             self._n = 0
 
 
+def _span_of(rec: tuple) -> Span:
+    kv = rec[6]
+    span = Span(*rec[:6], attrs=dict(zip(kv[::2], kv[1::2])))
+    if rec[7]:
+        span._twin = True
+    return span
+
+
 class Tracer:
     """The tracing front door every instrumented call site talks to.
 
-    ``enabled`` is fixed at construction so hot paths may cache it as a
-    plain bool.  Disabled tracers are pure no-ops: ``start_span`` /
-    ``record`` return ``None`` after bumping ``noop_calls`` (a GIL-racy
-    plain int — it is diagnostic, not an invariant), and nothing is
-    allocated or locked.  ``spans_recorded`` counts ended spans that
-    actually entered the ring; "tracing off => spans are no-ops" is
-    asserted as ``spans_recorded == 0``.
+    ``Tracer(enabled=True)`` records always, ``Tracer(enabled=False)``
+    never, and the process default tracer (:func:`default_tracer`) while
+    a ``torch.profiler`` session records.
+    :attr:`enabled` says whether it records now; a call site reads it
+    once and, when it is False, allocates nothing.  ``spans_started``
+    counts spans opened, ``spans_recorded`` ended spans that entered the
+    ring; "tracing off => spans are no-ops" is asserted as
+    ``spans_started == 0``.
     """
 
-    def __init__(self, enabled: bool = True, capacity: int = 16384, *,
-                 annotate_device: bool = False):
-        self.enabled = bool(enabled)
+    def __init__(self, enabled: bool = True, capacity: int = 16384):
+        self._on = bool(enabled)
         self.buffer = SpanBuffer(capacity)
-        # Opt-in NVTX ranges (obs.profiler.annotation) around dispatches, so
-        # device-profiler traces line up with host spans by name.
-        self.annotate_device = bool(annotate_device)
         self.spans_started = 0
         self.spans_recorded = 0
-        self.noop_calls = 0
+
+    @property
+    def enabled(self) -> bool:
+        """Whether spans opened now are recorded."""
+        return self._on
 
     # -- span lifecycle ---------------------------------------------------
 
     def start_span(self, name: str, trace_id: str,
                    parent_id: Optional[str] = None,
-                   t_start: Optional[float] = None,
+                   t_start: Optional[float] = None, *, twin: bool = False,
                    **attrs: Any) -> Optional[Span]:
-        """Open a span; returns ``None`` when disabled.  The span is
-        not in the ring until :meth:`end`."""
+        """Open a span; returns ``None`` when not recording.  The span is
+        not in the ring until :meth:`end`.  ``twin``: the span ends on
+        this thread, so open its twin while a profiler records."""
         if not self.enabled:
-            self.noop_calls += 1
             return None
+        return self._start(name, trace_id, parent_id, t_start, twin, attrs)
+
+    def child(self, parent: Optional[Span], name: str,
+              t_start: Optional[float] = None, *, twin: bool = False,
+              **attrs: Any) -> Optional[Span]:
+        """Open a span under ``parent``, in its trace; ``None`` when
+        ``parent`` is.  Recorded whether or not this tracer records now:
+        a recorded parent (a flush dispatched while recording) keeps its
+        children."""
+        if parent is None:
+            return None
+        return self._start(name, parent.trace_id, parent.span_id, t_start,
+                           twin, attrs)
+
+    def _start(self, name: str, trace_id: str, parent_id: Optional[str],
+               t_start: Optional[float], twin: bool,
+               attrs: Dict[str, Any]) -> Span:
         self.spans_started += 1
-        return Span(trace_id=trace_id, span_id=_rand_hex(8),
-                    parent_id=parent_id, name=name,
-                    t_start=(time.perf_counter() if t_start is None
-                             else t_start),
-                    attrs=attrs)
+        span = Span(trace_id, _rand_hex(8), parent_id, name,
+                    time.perf_counter() if t_start is None else t_start,
+                    0.0, attrs)
+        span._tracer = self
+        if twin and _torch_profiler._is_profiler_enabled:
+            rf = _Twin(TWIN_PREFIX + name)
+            rf.__enter__()
+            span._twin = rf
+        return span
 
     def end(self, span: Optional[Span],
             t_end: Optional[float] = None, **attrs: Any) -> None:
-        """Close a span and commit it to the ring.  ``None`` (the
-        disabled-tracer span) is accepted and ignored so call sites
-        need no branching."""
+        """Close a span (and its twin) and commit it to the ring.
+        ``None`` (the span of a tracer that was not recording) is
+        accepted and ignored so call sites need no branching."""
         if span is None:
-            self.noop_calls += 1
             return
         span.t_end = time.perf_counter() if t_end is None else t_end
+        rf = span._twin
+        if rf is not None and rf is not True:
+            rf.__exit__(None, None, None)
+            span._twin = True
         if attrs:
             span.attrs.update(attrs)
         self.buffer.append(span)
@@ -221,8 +303,8 @@ class Tracer:
     def record(self, name: str, trace_id: str,
                parent_id: Optional[str], t_start: float, t_end: float,
                **attrs: Any) -> Optional[Span]:
-        """Record an already-measured interval (e.g. ``device.solve``
-        reconstructed from dispatch/complete timestamps) in one call."""
+        """Record an already-measured interval in one call; ``None`` when
+        not recording."""
         span = self.start_span(name, trace_id, parent_id,
                                t_start=t_start, **attrs)
         if span is not None:
@@ -234,21 +316,101 @@ class Tracer:
     def spans(self) -> List[Span]:
         return self.buffer.snapshot()
 
+    def reset(self) -> None:
+        """Empty the ring and zero the counters."""
+        self.buffer.clear()
+        self.spans_started = 0
+        self.spans_recorded = 0
+
     def stats(self) -> Dict[str, int]:
         return {
             "enabled": int(self.enabled),
             "spans_started": self.spans_started,
             "spans_recorded": self.spans_recorded,
-            "noop_calls": self.noop_calls,
             "ring_len": len(self.buffer),
             "ring_capacity": self.buffer.capacity,
             "ring_dropped": self.buffer.dropped,
         }
 
 
-# The shared disabled tracer: what every instrumented component uses
-# when no tracer was injected, so call sites never need None checks.
+# A tracer that never records: inject it to keep a component's spans off
+# even while a profiler records.
 NOOP_TRACER = Tracer(enabled=False, capacity=1)
+
+class _WhileProfiling(Tracer):
+    """A tracer that records while a ``torch.profiler`` session records."""
+
+    @property
+    def enabled(self) -> bool:
+        return _torch_profiler._is_profiler_enabled
+
+
+# The process default tracer: what every component built without a
+# tracer uses.  Its ring holds a served slice of a few seconds (three
+# spans a request, about a dozen a flush) with room to spare.
+_DEFAULT_TRACER = _WhileProfiling(capacity=1 << 17)
+
+
+def default_tracer() -> Tracer:
+    """The process default tracer (records while a profiler records)."""
+    return _DEFAULT_TRACER
+
+
+# -- the span a thread's work runs under -------------------------------------
+
+# Set by a traced flush's dispatch so the solve it runs records its spans
+# into the flush's own tracer, under its flush.dispatch span.
+_current_span: contextvars.ContextVar[Optional[Span]] = \
+    contextvars.ContextVar("repro_torch_obs_span", default=None)
+
+
+def current_span() -> Optional[Span]:
+    """The span set by :func:`set_current_span` in this context, if any."""
+    return _current_span.get()
+
+
+def set_current_span(span: Span) -> contextvars.Token:
+    """Make ``span`` the parent of :func:`open_span` calls in this context
+    (until :func:`reset_current_span` with the returned token)."""
+    return _current_span.set(span)
+
+
+def reset_current_span(token: contextvars.Token) -> None:
+    _current_span.reset(token)
+
+
+def open_span(name: str) -> Optional[Span]:
+    """Open a span that ends on this thread, with its twin: under the
+    current span when there is one, else as the root of a new trace of
+    the process default tracer.  ``None`` when nothing records; close it
+    with :func:`close_span`."""
+    parent = _current_span.get()
+    if parent is not None:
+        return parent._tracer.child(parent, name, twin=True)
+    if not _DEFAULT_TRACER.enabled:
+        return None
+    return _DEFAULT_TRACER._start(name, _rand_hex(16), None, None, True, {})
+
+
+def stage(parent: Optional[Span], prev: Optional[Span],
+          name: Optional[str]) -> Optional[Span]:
+    """Close ``prev`` and open the stage ``name`` (none: open nothing)
+    under ``parent``, each with its twin; ``None`` throughout when
+    ``parent`` is ``None``, as it is when nothing records."""
+    if parent is None:
+        return None
+    tr = parent._tracer
+    if prev is not None:
+        tr.end(prev)
+    if name is None:
+        return None
+    return tr.child(parent, name, twin=True)
+
+
+def close_span(span: Optional[Span]) -> None:
+    """End a span opened by :func:`open_span`."""
+    if span is not None:
+        span._tracer.end(span)
 
 
 # -- ambient context (for log injection) -----------------------------------

@@ -37,8 +37,8 @@ lower bound.  ``--assert-trace`` hard-fails unless every completed
 request has its full submit->scatter span chain and ``min(2, devices)``
 devices show non-empty ``device.solve`` tracks (one card gives one
 track; the reference asks for two on any host).  Without tracing the
-bench asserts the scheduler's span path stayed a no-op
-(``spans_recorded == 0``).
+bench asserts the scheduler's span path stayed a no-op (no span
+started in the run).
 
 Every entry point runs on the card unless ``devices`` names others
 (``main(argv, devices=[torch.device("cpu")])`` on a CPU-only machine).
@@ -222,6 +222,7 @@ def run_traffic(cfg: BenchConfig, *, quiet: bool = False,
         _warmup(cfg, sched, quiet)
         if traced:
             sched.tracer.buffer.clear()   # measured phase only
+    started = sched.tracer.spans_started
     futures: List = []
     t_wall0 = time.perf_counter()
     with sched:
@@ -247,13 +248,13 @@ def run_traffic(cfg: BenchConfig, *, quiet: bool = False,
     if traced:
         snap.update(_trace_report(cfg, sched, quiet))
     else:
-        # The no-trace contract: with tracing off the scheduler's span
-        # path must be a pure no-op — nothing ever committed to a ring.
-        stats = sched.tracer.stats()
-        assert stats["spans_recorded"] == 0, (
-            "tracing disabled but the scheduler recorded "
-            f"{stats['spans_recorded']} spans; the no-trace path is "
-            "not free")
+        # The no-trace contract: with tracing off (and no profiler
+        # recording) the scheduler's span path must be a pure no-op —
+        # no span ever started.
+        n = sched.tracer.spans_started - started
+        assert n == 0, (
+            f"tracing disabled but the scheduler started {n} spans; "
+            "the no-trace path is not free")
     if not quiet:
         print(f"[serve_lp.bench] {cfg.requests} requests "
               f"({snap['n_feasible']} feasible) wall={wall:.2f}s "

@@ -316,14 +316,21 @@ class ServeMetrics:
     def record_flush(self, *, n_real: int, b_pad: int, bucket_m: int,
                      sum_m: int, solve_seconds: float,
                      reason: str, assemble_seconds: float = 0.0,
+                     dispatch_seconds: float = 0.0,
                      n_buckets: int = 1, launches: int = 1,
                      shards: tuple = (),
                      trace_id: Optional[str] = None) -> None:
+        """Count one completed flush.  ``assemble_seconds`` is the
+        assembly's own time, ``dispatch_seconds`` the dispatch's (its
+        wait for an in-flight slot included) and ``solve_seconds`` the
+        dispatch's return to the results on the host; the flush duration
+        is their sum."""
         with self._lock:
             self.hists["solve_duration_seconds"].observe(
                 solve_seconds, trace_id)
             self.hists["flush_duration_seconds"].observe(
-                assemble_seconds + solve_seconds, trace_id)
+                assemble_seconds + dispatch_seconds + solve_seconds,
+                trace_id)
             self.n_flushes += 1
             self.flush_reasons[reason] = (
                 self.flush_reasons.get(reason, 0) + 1)

@@ -94,18 +94,23 @@ def main(argv=None) -> None:
                     help="also snapshot when request p99 exceeds this "
                          "(needs --flight-spool)")
     ap.add_argument("--profile-dir", default=None, metavar="DIR",
-                    help="run a torch.profiler session (CPU + CUDA) for "
-                         "the server's lifetime, write its Chrome trace "
-                         "into DIR at shutdown, and label each device "
-                         "launch with its flush (NVTX)")
+                    help="run a torch.profiler session (CPU + CUDA, "
+                         "every thread) for the server's lifetime and "
+                         "write its Chrome trace into DIR at shutdown: "
+                         "the device's work, the program's spans as "
+                         "repro_torch.* ranges on the thread that ran "
+                         "them (submit, flush.assemble/dispatch/scatter, "
+                         "solve and its stages), and the request and "
+                         "device.solve spans on the same clock")
     args = ap.parse_args(argv)
 
     setup_logging(fmt=args.log_format)
 
+    # Without --trace the spans go to the process default tracer, which
+    # records while the --profile-dir session does.
     tracer = None
-    if args.trace or args.profile_dir:
-        tracer = Tracer(enabled=True, capacity=args.trace_capacity,
-                        annotate_device=bool(args.profile_dir))
+    if args.trace:
+        tracer = Tracer(enabled=True, capacity=args.trace_capacity)
     recorder = None
     if args.flight_spool:
         recorder = FlightRecorder(
@@ -132,7 +137,7 @@ def main(argv=None) -> None:
         recorder=recorder,
     )
 
-    profile = (ProfileSession(args.profile_dir)
+    profile = (ProfileSession(args.profile_dir, tracer=tracer)
                if args.profile_dir else None)
     if profile is not None:
         profile.start()

@@ -91,10 +91,10 @@ import torch
 from repro_torch.core.lp import PAD_B
 from repro_torch.device import default_devices
 from repro_torch.kernels.batch_lp import LANE
-from repro_torch.obs.profiler import annotation as _device_annotation
 from repro_torch.obs.recorder import FlightRecorder
-from repro_torch.obs.trace import (NOOP_TRACER, TraceContext, Tracer,
-                             new_trace_context)
+from repro_torch.obs.trace import (Span, TraceContext, Tracer,
+                                   default_tracer, new_trace_context,
+                                   reset_current_span, set_current_span)
 from repro_torch.serve_lp.buckets import (SHARDING_MODES, ExecSpec,
                                     ExecutableCache, bucket_batch, bucket_m)
 from repro_torch.serve_lp.metrics import ServeMetrics
@@ -268,13 +268,16 @@ class _InflightFlush:
     bufs: tuple                  # (L, c, mv) host arrays
     t_assemble: float            # assembly start
     n_buckets: int = 1           # m-buckets fused into this unit
+    t_assembled: float = 0.0     # assembly done (dispatch entered)
     t_dispatch: float = 0.0      # dispatch enqueued (device handed work)
     t_complete: float = 0.0      # device results materialized on host
     handle: Any = None           # in-flight device result handle
     counted: bool = False        # holds an in-flight slot (pipelined)
     # Tracing: flush-plane spans are emitted once per flush under the
-    # *primary* trace (the first member request's); membership of every
-    # fused-in trace rides on the flush.assemble span's trace_ids attr.
+    # *primary* trace (the submit span's for an inline flush, else the
+    # first member request's); membership of every fused-in trace rides
+    # on the flush.assemble span's trace_ids attr.  A flush assembled
+    # while its tracer records keeps every span to its scatter.
     trace_id: Optional[str] = None
     asm_span: Any = None         # the flush.assemble span (parent link)
     done: threading.Event = dataclasses.field(
@@ -330,11 +333,13 @@ class BatchScheduler:
         factor — fusing an m=8 bucket into an m=4096 flush would burn
         more pad cells than the saved launch is worth.
     tracer:
-        a :class:`repro_torch.obs.Tracer` to emit typed spans into (request,
-        queue.wait, flush.assemble/dispatch/scatter, device.solve per
-        launch group).  Default is the shared disabled tracer — the
-        untraced hot path costs one no-op counter bump per call site
-        and records zero spans.
+        a :class:`repro_torch.obs.Tracer` to emit typed spans into
+        (submit, request, queue.wait, flush.assemble/dispatch/scatter,
+        the flush's solve and its stages, device.solve per launch
+        group).  Default is the process default tracer
+        (:func:`repro_torch.obs.default_tracer`), which records while a
+        ``torch.profiler`` session records; otherwise a call site costs
+        one flag read and no span is allocated.
     recorder:
         a :class:`repro_torch.obs.FlightRecorder`; when given, the scheduler
         binds :meth:`debug_state` as its state source, shares its
@@ -426,13 +431,7 @@ class BatchScheduler:
         # padded 16x (crowd_sim submits m=8).
         self.bucket_base = LANE if spec.backend == "kernel" else 8
         self.metrics = metrics if metrics is not None else ServeMetrics()
-        self.tracer = tracer if tracer is not None else NOOP_TRACER
-        if self.tracer.annotate_device:
-            # Also label each launch group inside dispatch, so an active
-            # device profiler trace shows per-launch regions that
-            # match the host device.solve spans.
-            from repro_torch.serve_lp import sharding as _sharding_mod
-            _sharding_mod.set_launch_annotations(True)
+        self.tracer = tracer if tracer is not None else default_tracer()
         self.recorder = recorder
         if recorder is not None:
             recorder.bind_state(self.debug_state)
@@ -637,10 +636,24 @@ class BatchScheduler:
         dtype and pre-split into packed rows.
 
         ``trace`` propagates an upstream :class:`TraceContext` (the RPC
-        layer's parsed ``X-Trace-Id``); when the scheduler's tracer is
-        enabled and none is given, a fresh root context is generated
+        layer's parsed ``X-Trace-Id``); when the scheduler's tracer
+        records and none is given, a fresh root context is generated
         here, so every traced request has a full span chain either
-        way."""
+        way.  The call is then a ``submit`` span, the parent of the
+        flush it runs inline (size or fuse trigger)."""
+        tracer = self.tracer
+        if not tracer.enabled:
+            return self._submit(A, b, c, None, None)
+        ctx = trace if trace is not None else new_trace_context()
+        sub = tracer.start_span("submit", ctx.trace_id,
+                                parent_id=ctx.span_id, twin=True)
+        try:
+            return self._submit(A, b, c, ctx, sub)
+        finally:
+            tracer.end(sub)
+
+    def _submit(self, A, b, c, ctx: Optional[TraceContext],
+                sub: Optional[Span]) -> Future:
         dt = self._dtype
         A = np.asarray(A, dt).reshape(-1, 2)
         m = A.shape[0]
@@ -654,17 +667,14 @@ class BatchScheduler:
                        b=b, c=c, m=m, future=fut,
                        t_submit=time.perf_counter())
         bm = bucket_m(m, base=self.bucket_base)
-        tracer = self.tracer
-        if tracer.enabled:
-            ctx = trace if trace is not None else new_trace_context()
+        if ctx is not None:
+            tracer = self.tracer
             req.trace = ctx
             req.span = tracer.start_span(
                 "request", ctx.trace_id, parent_id=ctx.span_id,
                 t_start=req.t_submit, bucket_m=bm, m=m)
-            req.qspan = tracer.start_span(
-                "queue.wait", ctx.trace_id,
-                parent_id=req.span.span_id,
-                t_start=req.t_submit, bucket_m=bm)
+            req.qspan = tracer.child(req.span, "queue.wait",
+                                     t_start=req.t_submit, bucket_m=bm)
         self.metrics.touch_clock()
         ready = None
         fused = None
@@ -691,9 +701,11 @@ class BatchScheduler:
                     with self._inflight_cv:
                         self._active += 1
         if ready is not None:
-            self._solve(bm, ready, reason="size", pre_counted=True)
+            self._solve(bm, ready, reason="size", pre_counted=True,
+                        parent=sub)
         elif fused is not None:
-            self._solve_unit(fused, reason="fused", pre_counted=True)
+            self._solve_unit(fused, reason="fused", pre_counted=True,
+                             parent=sub)
         return fut
 
     def _pop_fused_locked(self) -> Optional[List[Tuple[int, list]]]:
@@ -916,13 +928,15 @@ class BatchScheduler:
     # -- the pipelined solve path ----------------------------------------
 
     def _solve(self, bm: int, reqs: List[_Pending], *, reason: str,
-               pre_counted: bool = False) -> None:
+               pre_counted: bool = False,
+               parent: Optional[Span] = None) -> None:
         """Flush one bucket (the single-bucket unit)."""
         self._solve_unit([(bm, reqs)], reason=reason,
-                         pre_counted=pre_counted)
+                         pre_counted=pre_counted, parent=parent)
 
     def _solve_unit(self, parts: List[Tuple[int, List[_Pending]]], *,
-                    reason: str, pre_counted: bool = False) -> None:
+                    reason: str, pre_counted: bool = False,
+                    parent: Optional[Span] = None) -> None:
         """Flush one unit — one bucket, or several fused: assemble,
         dispatch and — pipelined — hand completion to the worker.  A
         fused unit solves every member's requests in a single
@@ -937,7 +951,7 @@ class BatchScheduler:
         nothing is skipped entirely.  Surviving futures are *claimed*
         (``set_running_or_notify_cancel``) so a later ``cancel()`` from
         another thread returns False instead of racing the completion
-        scatter."""
+        scatter.  ``parent`` is the ``submit`` span of an inline flush."""
         tracer = self.tracer
         live: List[Tuple[int, List[_Pending]]] = []
         for bm_i, q in parts:
@@ -945,7 +959,7 @@ class BatchScheduler:
             for r in q:
                 if r.future.set_running_or_notify_cancel():
                     kept.append(r)
-                else:
+                elif r.span is not None:
                     tracer.end(r.qspan, cancelled=True)
                     tracer.end(r.span, cancelled=True)
                     r.qspan = r.span = None
@@ -964,7 +978,7 @@ class BatchScheduler:
                 self._active += 1
         try:
             unit = self._assemble(bm, reqs, reason,
-                                  n_buckets=len(live))
+                                  n_buckets=len(live), parent=parent)
             self._dispatch(unit)
         except Exception as e:  # propagate to every waiter, don't hang
             with self._inflight_cv:
@@ -972,9 +986,10 @@ class BatchScheduler:
                 self._inflight_cv.notify_all()
             for r in reqs:
                 _try_set_exception(r.future, e)
-                tracer.end(r.qspan, error=type(e).__name__)
-                tracer.end(r.span, error=type(e).__name__)
-                r.qspan = r.span = None
+                if r.span is not None:
+                    tracer.end(r.qspan, error=type(e).__name__)
+                    tracer.end(r.span, error=type(e).__name__)
+                    r.qspan = r.span = None
             raise
         if not self.pipeline:
             err = self._complete_unit(unit)
@@ -982,11 +997,16 @@ class BatchScheduler:
                 raise err
 
     def _assemble(self, bm: int, reqs: List[_Pending],
-                  reason: str, n_buckets: int = 1) -> _InflightFlush:
+                  reason: str, n_buckets: int = 1,
+                  parent: Optional[Span] = None) -> _InflightFlush:
         """Host-side stage: lease packed buffers, fill them directly in
         the SoA layout (neutral columns/problems are a_x = a_y = 0,
         b = PAD_B, c = (1, 0), m_valid = 0 — no AoS intermediate, no
-        device-side re-stack) and resolve the executable."""
+        device-side re-stack) and resolve the executable.  While the
+        tracer records it is a ``flush.assemble`` span: under
+        ``parent`` (an inline flush's ``submit`` span) when given, else
+        under the first traced request's ``request`` span, else the root
+        of a new trace."""
         B = len(reqs)
         pinned = self._pin_for_bucket(bm, B)
         b_pad = bucket_batch(B, pinned.tile)
@@ -999,24 +1019,32 @@ class BatchScheduler:
             self._flush_seq += 1
             seq = self._flush_seq
         name = f"flush-{seq} m{bm}xb{b_pad}"
-        t0 = time.perf_counter()
         tracer = self.tracer
         trace_id = None
         asm_span = None
         if tracer.enabled:
-            primary = next(
-                (r for r in reqs if r.trace is not None), None)
-            if primary is not None:
-                trace_id = primary.trace.trace_id
-                asm_span = tracer.start_span(
-                    "flush.assemble", trace_id,
-                    parent_id=(primary.span.span_id
-                               if primary.span is not None else None),
-                    t_start=t0, flush=name, bucket_m=bm, b_pad=b_pad,
-                    n_real=B, n_buckets=n_buckets, reason=reason,
-                    trace_ids=tuple(r.trace.trace_id for r in reqs
-                                    if r.trace is not None))
-            for r in reqs:
+            if parent is not None:
+                trace_id, parent_id = parent.trace_id, parent.span_id
+            else:
+                primary = next(
+                    (r for r in reqs if r.trace is not None), None)
+                trace_id = (primary.trace if primary is not None
+                            else new_trace_context()).trace_id
+                parent_id = (primary.span.span_id
+                             if primary is not None
+                             and primary.span is not None else None)
+            asm_span = tracer.start_span(
+                "flush.assemble", trace_id, parent_id=parent_id,
+                twin=True, flush=name, bucket_m=bm,
+                b_pad=b_pad, n_real=B, n_buckets=n_buckets, reason=reason,
+                trace_ids=tuple(r.trace.trace_id for r in reqs
+                                if r.trace is not None))
+            if asm_span is None:
+                trace_id = None
+        t0 = (asm_span.t_start if asm_span is not None
+              else time.perf_counter())
+        for r in reqs:
+            if r.qspan is not None:
                 tracer.end(r.qspan, t_end=t0, flush=name)
                 r.qspan = None
         self.metrics.record_queue_waits(
@@ -1033,8 +1061,9 @@ class BatchScheduler:
                 c[i] = r.c
                 mv[i, 0] = r.m
             exe = as_executable(self.cache.get(spec))
-        except Exception:
+        except Exception as e:
             self.buffers.release(key, bufs)
+            tracer.end(asm_span, error=type(e).__name__)
             raise
         tracer.end(asm_span)
         return _InflightFlush(
@@ -1046,37 +1075,41 @@ class BatchScheduler:
     def _dispatch(self, unit: _InflightFlush) -> None:
         """Async stage: reserve an in-flight slot (backpressure — blocks
         while ``max_inflight`` flushes are in flight), enqueue the solve
-        on the device and hand the unit to the completion worker."""
+        on the device and hand the unit to the completion worker.  In a
+        traced flush it is a ``flush.dispatch`` span, with the time
+        blocked on ``max_inflight`` as ``inflight_wait_ms``; the solve it
+        enqueues records its spans under it, and its stages on the stream
+        are timed with CUDA events."""
         tracer = self.tracer
-        dspan = None
-        if tracer.enabled and unit.trace_id is not None:
-            # Covers backpressure wait + the async dispatch call; the
-            # device.solve span then starts where this one ends.
-            dspan = tracer.start_span(
-                "flush.dispatch", unit.trace_id,
-                parent_id=(unit.asm_span.span_id
-                           if unit.asm_span is not None else None),
-                flush=unit.name, bucket_m=unit.bucket_m)
+        unit.t_assembled = t0 = time.perf_counter()
+        # Covers backpressure wait + the async dispatch call; the
+        # device.solve span then starts where this one ends.
+        dspan = tracer.child(unit.asm_span, "flush.dispatch", t_start=t0,
+                             twin=True, flush=unit.name,
+                             bucket_m=unit.bucket_m)
         if self.pipeline:
             with self._inflight_cv:
                 self._inflight_cv.wait_for(
                     lambda: self._inflight < self.max_inflight)
                 self._inflight += 1
                 unit.counted = True
+        t_slot = time.perf_counter()
         L, c, mv = unit.bufs
+        token = set_current_span(dspan) if dspan is not None else None
         try:
-            if tracer.annotate_device:
-                with _device_annotation(unit.name):
-                    unit.handle = unit.exe.dispatch(L, c, mv)
-            else:
-                unit.handle = unit.exe.dispatch(L, c, mv)
-        except Exception:
+            unit.handle = unit.exe.dispatch(L, c, mv)
+        except Exception as e:
             self._release_slot(unit)
             self.buffers.release(unit.buf_key, unit.bufs)
+            tracer.end(dspan, error=type(e).__name__)
             raise
+        finally:
+            if token is not None:
+                reset_current_span(token)
         unit.t_dispatch = time.perf_counter()
         tracer.end(dspan, t_end=unit.t_dispatch,
-                   launches=getattr(unit.exe, "n_launches", 1))
+                   launches=getattr(unit.exe, "n_launches", 1),
+                   inflight_wait_ms=(t_slot - t0) * 1e3)
         self.metrics.record_dispatch()
         if self.pipeline:
             self._ensure_completer()
@@ -1135,6 +1168,10 @@ class BatchScheduler:
         except Exception as e:
             err = e
         unit.t_complete = time.perf_counter()
+        tracer = self.tracer
+        sspan = tracer.child(unit.asm_span, "flush.scatter", twin=True,
+                             flush=unit.name, bucket_m=unit.bucket_m)
+        timing = getattr(unit.handle, "timing", None)
         unit.handle = None
         # Device is synchronized (or dead): the host buffers are free.
         self.buffers.release(unit.buf_key, unit.bufs)
@@ -1143,29 +1180,21 @@ class BatchScheduler:
             self._active -= 1
             self._inflight_cv.notify_all()
         self.metrics.record_complete()
-        tracer = self.tracer
-        traced = tracer.enabled and unit.trace_id is not None
-        parent = (unit.asm_span.span_id
-                  if unit.asm_span is not None else None)
-        sspan = None
-        if traced:
+        if unit.asm_span is not None:
             # One device.solve span per launch group, reconstructed
             # from the host-observed dispatch -> complete window (the
             # device service interval the union/idle math runs on).
-            self._record_device_spans(unit, parent)
-            sspan = tracer.start_span(
-                "flush.scatter", unit.trace_id, parent_id=parent,
-                t_start=unit.t_complete, flush=unit.name,
-                bucket_m=unit.bucket_m)
+            self._record_device_spans(unit, timing)
         if err is not None:
             # Order matters: commit the errored spans, fire the flight
             # recorder (via the record_error hook) so its snapshot holds
             # them as evidence, and only then settle the futures — a
             # caller woken by its future sees evidence fully captured.
             for r in unit.reqs:
-                tracer.end(r.span, error=type(err).__name__,
-                           flush=unit.name)
-                r.span = None
+                if r.span is not None:
+                    tracer.end(r.span, error=type(err).__name__,
+                               flush=unit.name)
+                    r.span = None
             tracer.end(sspan, error=type(err).__name__)
             if self.pipeline:
                 self.metrics.record_error(
@@ -1195,7 +1224,8 @@ class BatchScheduler:
             n_real=B, b_pad=unit.b_pad, bucket_m=unit.bucket_m,
             sum_m=sum(r.m for r in unit.reqs),
             solve_seconds=unit.t_complete - unit.t_dispatch,
-            assemble_seconds=unit.t_dispatch - unit.t_assemble,
+            assemble_seconds=unit.t_assembled - unit.t_assemble,
+            dispatch_seconds=unit.t_dispatch - unit.t_assembled,
             reason=unit.reason,
             n_buckets=unit.n_buckets,
             launches=getattr(unit.exe, "n_launches", 1),
@@ -1206,9 +1236,10 @@ class BatchScheduler:
                 lambda: self.metrics.percentile(99.0))
         for i, r in enumerate(unit.reqs):
             if r.future.done():
-                tracer.end(r.span, t_end=now, flush=unit.name,
-                           dropped=True)
-                r.span = None
+                if r.span is not None:
+                    tracer.end(r.span, t_end=now, flush=unit.name,
+                               dropped=True)
+                    r.span = None
                 continue
             xi = np.asarray(x[i])
             _try_set_result(r.future, LPResult(
@@ -1220,39 +1251,67 @@ class BatchScheduler:
                 batch_size=B,
                 latency_s=now - r.t_submit,
             ))
-            tracer.end(r.span, t_end=now, flush=unit.name,
-                       feasible=bool(feas[i]))
-            r.span = None
+            if r.span is not None:
+                tracer.end(r.span, t_end=now, flush=unit.name,
+                           feasible=bool(feas[i]))
+                r.span = None
         tracer.end(sspan)
         unit.done.set()
         return None
 
     def _record_device_spans(self, unit: _InflightFlush,
-                             parent: Optional[str]) -> None:
+                             timing: Optional[List[Dict[str, float]]]
+                             ) -> None:
         """Emit per-launch-group ``device.solve`` spans for one
         completed flush: mesh executables get one span per
         :class:`~repro_torch.serve_lp.mesh_layout.LaunchGroup` (its device
         indices and row geometry as attrs); injected executables
         without a layout get a single span over every participating
-        device."""
+        device.
+
+        A span's bounds are the host's window from the dispatch's return
+        to the completion observed (it holds the device's work and may
+        run past it).  On a card, the dispatch of a traced flush is timed
+        with CUDA events on its stream, and the span carries
+        ``enqueue_ms`` (copy-in start to copy-out end), ``copy_in_ms``,
+        ``solve_enqueue_ms``, ``copy_out_ms`` and ``waited_ms`` (the
+        completion blocked on the device), each the largest over the
+        group's shards.  The stream waits on the host between the solve's
+        eager launches, so these time the enqueue, not the device's work
+        (:mod:`repro_torch.serve_lp.sharding`)."""
         layout = getattr(unit.exe, "layout", None)
         groups = getattr(layout, "groups", ()) if layout is not None \
             else ()
         if groups:
+            k = 0
             for g in groups:
-                self.tracer.record(
-                    "device.solve", unit.trace_id, parent,
-                    unit.t_dispatch, unit.t_complete,
-                    flush=unit.name, bucket_m=unit.bucket_m,
+                self._device_span(
+                    unit, _group_timing(timing, k, g.n_devices),
                     devices=g.device_indices,
                     rows_per_device=g.rows_per_device, rows=g.rows)
+                k += g.n_devices
             return
         shards = tuple(getattr(unit.exe, "shards", ()) or ())
         devices = (tuple(i for i, s in enumerate(shards) if s)
                    or tuple(range(len(self._devices))))
-        self.tracer.record(
-            "device.solve", unit.trace_id, parent,
-            unit.t_dispatch, unit.t_complete,
-            flush=unit.name, bucket_m=unit.bucket_m,
+        self._device_span(
+            unit, _group_timing(timing, 0, len(timing or ())),
             devices=devices,
             rows=int(sum(shards)) if shards else unit.b_pad)
+
+    def _device_span(self, unit: _InflightFlush,
+                     times: Dict[str, float], **attrs: Any) -> None:
+        span = self.tracer.child(
+            unit.asm_span, "device.solve", t_start=unit.t_dispatch,
+            flush=unit.name, bucket_m=unit.bucket_m, **attrs, **times)
+        self.tracer.end(span, t_end=unit.t_complete)
+
+
+def _group_timing(timing: Optional[List[Dict[str, float]]], lo: int,
+                  n: int) -> Dict[str, float]:
+    """The largest of each device time over shards ``lo .. lo + n`` (a
+    launch group's devices run side by side); empty when untimed."""
+    part = (timing or [])[lo:lo + n]
+    if not part:
+        return {}
+    return {k: max(t[k] for t in part) for k in part[0]}

@@ -23,6 +23,17 @@ Built executables are *two-stage* so the serve loop can pipeline:
   bool)`` — the scheduler's completion worker scatters those rows
   straight into per-request futures.
 
+A dispatch under a recorded span (a traced flush's ``flush.dispatch``,
+:func:`repro_torch.obs.trace.current_span`) is *timed*: four timing events
+a shard on its stream, at copy-in start, after the copy in, after the
+solve and after the copy out, and ``complete`` leaves the intervals
+between them and its own wait on the last in the handle's ``timing``.
+An interval on the stream is the longer of the host's enqueue of its work
+and the device's run of it: a flush's solve is ~25 eager launches that
+the host issues slower than the device runs them, so its intervals time
+the enqueue, not the device's work.  Any other dispatch records one
+untimed event a shard.
+
 On CPU devices (the tests) the solve runs synchronously at dispatch and
 ``complete`` only concatenates.
 
@@ -41,6 +52,7 @@ layout.
 from __future__ import annotations
 
 import threading
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -49,25 +61,10 @@ import torch
 from repro_torch.core.lp import PAD_B
 from repro_torch.core.packed import PackedLPBatch
 from repro_torch.device import default_devices
-from repro_torch.obs.profiler import annotation as _device_annotation
+from repro_torch.obs.trace import current_span
 from repro_torch.serve_lp.buckets import ExecSpec
 from repro_torch.serve_lp.mesh_layout import MeshLayout, plan_layout
 from repro_torch.solver import solve_with_spec
-
-# Opt-in per-launch NVTX range around each launch-group dispatch, so
-# device-profiler timelines carry the same launch labels as the host-side
-# device.solve spans.  Off by default: the annotation context costs a
-# little per launch and is only useful while a profiler is recording.
-_ANNOTATE_LAUNCHES = False
-
-
-def set_launch_annotations(enabled: bool) -> None:
-    """Enable/disable per-launch-group profiler annotations (the
-    scheduler flips this on when its tracer was built with
-    ``annotate_device=True``)."""
-    global _ANNOTATE_LAUNCHES
-    _ANNOTATE_LAUNCHES = bool(enabled)
-
 
 def _make_solve(spec: ExecSpec) -> Callable:
     """The per-shard solve as a function of the packed tensors — the
@@ -172,30 +169,66 @@ class _DeviceStreams:
 _streams = _DeviceStreams()
 
 
-def _dispatch_shard(solve, device: torch.device, L, c, mv):
+class FlushHandle:
+    """One dispatched flush: a ``(x_host, feas_host, event, keepalive,
+    timing_events)`` tuple a shard, in launch-group order.  After
+    :meth:`Executable.complete` of a timed dispatch, ``timing`` holds a
+    dict a shard, each interval between its CUDA events on the stream
+    (the longer of the host's enqueue and the device's run):
+    ``enqueue_ms`` (copy-in start to copy-out end), ``copy_in_ms``,
+    ``solve_enqueue_ms``, ``copy_out_ms``; and ``waited_ms`` (the host
+    blocked on the shard's last event)."""
+
+    __slots__ = ("shards", "timing")
+
+    def __init__(self, shards: list):
+        self.shards = shards
+        self.timing: Optional[List[Dict[str, float]]] = None
+
+
+def _dispatch_shard(solve, device: torch.device, L, c, mv, timed: bool):
     """Run one device's rows.  CPU: solve now, hand back numpy.  CUDA:
     enqueue copy-in, solve and copy-out on the device's stream and hand
-    back ``(x_host, feas_host, event, keepalive)`` without waiting."""
+    back ``(x_host, feas_host, event, keepalive, timing_events)`` without
+    waiting; ``timed``: four timing events around the stages (the last is
+    ``event``), else one untimed event and ``None``."""
     Lt, ct, mvt = (torch.from_numpy(a) for a in (L, c, mv))
     if device.type == "cpu":
         x, feas = solve(Lt, ct, mvt)
-        return x.numpy(), feas.numpy(), None, None
+        return x.numpy(), feas.numpy(), None, None, None
     stream = _streams.get(device)
+    evs = None
     with torch.cuda.device(device), torch.cuda.stream(stream):
+        if timed:
+            evs = tuple(torch.cuda.Event(enable_timing=True)
+                        for _ in range(4))
+            evs[0].record(stream)
         Ld = Lt.to(device, non_blocking=True)
         cd = ct.to(device, non_blocking=True)
         mvd = mvt.to(device, non_blocking=True)
+        if timed:
+            evs[1].record(stream)
         x, feas = solve(Ld, cd, mvd)
+        if timed:
+            evs[2].record(stream)
         x_h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
         f_h = torch.empty(feas.shape, dtype=feas.dtype, pin_memory=True)
         x_h.copy_(x, non_blocking=True)
         f_h.copy_(feas, non_blocking=True)
-        event = torch.cuda.Event()
+        event = evs[3] if timed else torch.cuda.Event()
         event.record(stream)
     # The device tensors ride along in the handle so they outlive the
     # copies that read them; they were allocated on, and are only ever
     # used on, this stream, so freeing them later is safe.
-    return x_h, f_h, event, (Ld, cd, mvd, x, feas)
+    return x_h, f_h, event, (Ld, cd, mvd, x, feas), evs
+
+
+def _shard_timing(evs, waited_s: float) -> Dict[str, float]:
+    return {"enqueue_ms": evs[0].elapsed_time(evs[3]),
+            "copy_in_ms": evs[0].elapsed_time(evs[1]),
+            "solve_enqueue_ms": evs[1].elapsed_time(evs[2]),
+            "copy_out_ms": evs[2].elapsed_time(evs[3]),
+            "waited_ms": waited_s * 1e3}
 
 
 def _build_mesh_executable(spec: ExecSpec, devices: List[torch.device],
@@ -207,39 +240,36 @@ def _build_mesh_executable(spec: ExecSpec, devices: List[torch.device],
     layout = plan_layout(spec.b_pad, spec.tile, len(devices))
     b_pad = spec.b_pad
     groups = layout.groups
-    labels = tuple(
-        f"launch d{g.start}+{g.n_devices} rows{g.rows} m{spec.bucket_m}"
-        for g in groups)
-
-    def dispatch_group(g, L, c, mv):
-        out = []
-        for k in range(g.n_devices):
-            lo = g.offset + k * g.rows_per_device
-            hi = lo + g.rows_per_device
-            out.append(_dispatch_shard(solve, devices[g.start + k],
-                                       L[lo:hi], c[lo:hi], mv[lo:hi]))
-        return out
 
     def dispatch(L, c, mv):
         if L.shape[0] != layout.b_pad:
             L, c, mv = _pad_rows(L, c, mv, layout.b_pad)
-        handles = []
-        for g, label in zip(groups, labels):
-            if _ANNOTATE_LAUNCHES:
-                with _device_annotation(label):
-                    handles.extend(dispatch_group(g, L, c, mv))
-            else:
-                handles.extend(dispatch_group(g, L, c, mv))
-        return tuple(handles)
+        timed = current_span() is not None
+        shards = []
+        for g in groups:
+            for k in range(g.n_devices):
+                lo = g.offset + k * g.rows_per_device
+                hi = lo + g.rows_per_device
+                shards.append(_dispatch_shard(
+                    solve, devices[g.start + k], L[lo:hi], c[lo:hi],
+                    mv[lo:hi], timed))
+        return FlushHandle(shards)
 
-    def complete(handles):
+    def complete(handle):
         xs, fs = [], []
-        for x_h, f_h, event, _keep in handles:
+        timing = []
+        for x_h, f_h, event, _keep, evs in handle.shards:
             if event is not None:
+                t = time.perf_counter() if evs is not None else 0.0
                 event.synchronize()
+                if evs is not None:
+                    timing.append(
+                        _shard_timing(evs, time.perf_counter() - t))
                 x_h, f_h = x_h.numpy(), f_h.numpy()
             xs.append(x_h)
             fs.append(f_h)
+        if timing:
+            handle.timing = timing
         x = xs[0] if len(xs) == 1 else np.concatenate(xs)
         feas = fs[0] if len(fs) == 1 else np.concatenate(fs)
         return x[:b_pad], feas[:b_pad]

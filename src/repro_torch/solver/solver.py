@@ -54,6 +54,7 @@ from repro_torch.core.packed import (PackedLPBatch, normalize_packed, pack,
 from repro_torch.core.seidel import (solve_naive, solve_naive_packed,
                                      solve_rgb, solve_rgb_packed)
 from repro_torch.device import DeviceLike, as_device
+from repro_torch.obs.trace import Span, close_span, open_span, stage
 from repro_torch.pdhg import solve_pdhg, solve_pdhg_packed
 from repro_torch.solver.spec import RGB_DEFAULT_TILE, SolverSpec
 
@@ -71,7 +72,26 @@ def solve_with_spec(spec: SolverSpec, batch: AnyLPBatch,
     ``generator`` overrides the spec's shuffle policy for this call; with
     ``generator=None`` the batch is shuffled iff ``spec.shuffle`` (seeded
     by ``spec.seed``).
+
+    Under a traced flush's dispatch, or else while the process default
+    tracer records (while a profiler records), the call is a ``solve``
+    span with one child a stage (``solve.cast``, ``.normalize``, ``.shuffle``,
+    ``.pack``, ``.pad``, ``.launch``, ``.objective``, as far as the
+    backend takes them); under a flush they go to the flush's tracer,
+    under its ``flush.dispatch`` span.
     """
+    top = open_span("solve")
+    if top is None:
+        return _solve(spec, batch, generator, None)
+    try:
+        return _solve(spec, batch, generator, top)
+    finally:
+        close_span(top)
+
+
+def _solve(spec: SolverSpec, batch: AnyLPBatch,
+           generator: Optional[torch.Generator],
+           top: Optional[Span]) -> LPSolution:
     is_packed = isinstance(batch, PackedLPBatch)
     m = batch.m_pad if is_packed else batch.m
     device = batch.device
@@ -79,43 +99,59 @@ def solve_with_spec(spec: SolverSpec, batch: AnyLPBatch,
     dt = _TORCH_DTYPES[spec.dtype]
     if generator is None and spec.shuffle:
         generator = torch.Generator(device=device).manual_seed(spec.seed)
+    if top is not None:
+        top.attrs.update(B=batch.batch, m_pad=m, backend=spec.backend,
+                         tile=spec.tile)
+    st = stage(top, None, "solve.cast")
     if is_packed:
-        return _solve_packed(spec, batch, dt, generator)
+        return _solve_packed(spec, batch, dt, generator, top, st)
     # Cast each tensor (``to`` is the identity when already dt): A alone
     # matching must not let a mixed-dtype b or c leak through.
     batch = LPBatch(A=batch.A.to(dt), b=batch.b.to(dt),
                     c=batch.c.to(dt), m_valid=batch.m_valid)
     if spec.normalize:
+        st = stage(top, st, "solve.normalize")
         batch = normalize_batch(batch)
     if generator is not None:
+        st = stage(top, st, "solve.shuffle")
         batch = shuffle_batch(generator, batch)
     if spec.backend == "kernel":
-        return _solve_kernel(spec, pack(batch))
-    return _solve_dense(spec, batch)
+        st = stage(top, st, "solve.pack")
+        return _solve_kernel(spec, pack(batch), top, st)
+    st = stage(top, st, "solve.launch")
+    sol = _solve_dense(spec, batch)
+    stage(top, st, None)
+    return sol
 
 
-def _solve_packed(spec: SolverSpec, pb: PackedLPBatch, dt,
-                  generator) -> LPSolution:
+def _solve_packed(spec: SolverSpec, pb: PackedLPBatch, dt, generator,
+                  top: Optional[Span], st: Optional[Span]) -> LPSolution:
     """The packed-native pipeline: cast -> normalise -> shuffle without
     leaving the SoA layout, then hand the ``L`` rows straight to the
     backend (kernel and dense alike — no unpack)."""
     pb = PackedLPBatch(L=pb.L.to(dt), c=pb.c.to(dt), m_valid=pb.m_valid)
     if spec.normalize:
+        st = stage(top, st, "solve.normalize")
         pb = normalize_packed(pb)
     if generator is not None:
+        st = stage(top, st, "solve.shuffle")
         pb = shuffle_packed(generator, pb)
     if spec.backend == "kernel":
-        return _solve_kernel(spec, pb)
+        return _solve_kernel(spec, pb, top, st)
+    st = stage(top, st, "solve.launch")
     if spec.backend == "pdhg":
-        return solve_pdhg_packed(pb, M=spec.M, tol=spec.tol,
-                                 max_iters=spec.max_iters,
-                                 iter_block=spec.iter_block,
-                                 restart_period=spec.restart_period)
-    if spec.backend == "naive":
-        return solve_naive_packed(pb, M=spec.M)
-    return solve_rgb_packed(pb, M=spec.M,
-                            tile=spec.tile or RGB_DEFAULT_TILE,
-                            chunk=spec.chunk or 0)
+        sol = solve_pdhg_packed(pb, M=spec.M, tol=spec.tol,
+                                max_iters=spec.max_iters,
+                                iter_block=spec.iter_block,
+                                restart_period=spec.restart_period)
+    elif spec.backend == "naive":
+        sol = solve_naive_packed(pb, M=spec.M)
+    else:
+        sol = solve_rgb_packed(pb, M=spec.M,
+                               tile=spec.tile or RGB_DEFAULT_TILE,
+                               chunk=spec.chunk or 0)
+    stage(top, st, None)
+    return sol
 
 
 def _solve_dense(spec: SolverSpec, batch: LPBatch) -> LPSolution:
@@ -131,29 +167,37 @@ def _solve_dense(spec: SolverSpec, batch: LPBatch) -> LPSolution:
                      chunk=spec.chunk or 0)
 
 
-def _solve_kernel(spec: SolverSpec, pb: PackedLPBatch) -> LPSolution:
+def _solve_kernel(spec: SolverSpec, pb: PackedLPBatch,
+                  top: Optional[Span], st: Optional[Span]) -> LPSolution:
     # Deferred import: kernels.ops wraps this package for its public
     # compatibility surface, so the dependency must point one way only.
     from repro_torch.kernels.batch_lp import (LANE, _pick_tile, rgb_cuda,
                                               rgb_plain)
 
+    st = stage(top, st, "solve.pad")
     B = pb.batch
     pb = pad_packed(pb, -(-pb.m_pad // LANE) * LANE)
     tile = spec.tile or _pick_tile(B)
     run = pad_packed_batch_dim(pb, -(-B // tile) * tile)
+    L, c = run.L.contiguous(), run.c.contiguous()
+    mv = run.m_valid.to(torch.int32).contiguous()
+    if top is not None:
+        top.attrs.update(m_pad=pb.m_pad, tile=tile)
     # ``interpret`` is the one explicit way to ask for the plain version;
     # it resolves to True by itself only on the CPU platform.  Otherwise
     # the wrapper launches the kernel (or raises) for CUDA tensors.
+    st = stage(top, st, "solve.launch")
     launch = rgb_plain if spec.interpret else rgb_cuda
-    x, feas = launch(run.L.contiguous(), run.c.contiguous(),
-                     run.m_valid.to(torch.int32).contiguous(),
-                     M=spec.M, tile=tile, chunk=spec.chunk or 0)
+    x, feas = launch(L, c, mv, M=spec.M, tile=tile, chunk=spec.chunk or 0)
+    st = stage(top, st, "solve.objective")
     x, feas = x[:B], feas[:B, 0]
-    return LPSolution(
+    sol = LPSolution(
         x=x,
         feasible=feas.to(torch.bool),
         objective=_objective(pb.c.to(x.dtype), x),
     )
+    stage(top, st, None)
+    return sol
 
 
 class Solver:
@@ -191,12 +235,24 @@ class Solver:
 
     def solve(self, batch: AnyLPBatch,
               generator: Optional[torch.Generator] = None) -> LPSolution:
-        """Solve one batch (AoS or packed) on this solver's device."""
+        """Solve one batch (AoS or packed) on this solver's device: one
+        ``solve`` span, the move to the device included."""
+        top = open_span("solve")
+        if top is None:
+            return self._solve_here(batch, generator, None)
+        try:
+            return self._solve_here(batch, generator, top)
+        finally:
+            close_span(top)
+
+    def _solve_here(self, batch: AnyLPBatch,
+                    generator: Optional[torch.Generator],
+                    top: Optional[Span]) -> LPSolution:
         batch = batch.to(self.device)
         arr = batch.L if isinstance(batch, PackedLPBatch) else batch.A
         self._shapes.add((type(batch).__name__, tuple(arr.shape),
                           str(arr.dtype), generator is not None))
-        return solve_with_spec(self._solve_spec, batch, generator)
+        return _solve(self._solve_spec, batch, generator, top)
 
     def solve_one(self, A, b, c,
                   generator: Optional[torch.Generator] = None) -> LPSolution:

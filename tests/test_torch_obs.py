@@ -91,7 +91,8 @@ def test_disabled_tracer_is_noop():
     tr.end(s)
     assert tr.record("device.solve", "a" * 32, None, 0.0, 1.0) is None
     assert tr.stats()["spans_recorded"] == 0
-    assert tr.stats()["noop_calls"] == 3
+    assert tr.stats()["spans_started"] == 0
+    assert "noop_calls" not in tr.stats()
     assert NOOP_TRACER.enabled is False
 
 
