@@ -41,6 +41,16 @@ and prints one JSON object per line:
    pre-packed batches: resolved to what the active tuning table names
    (the kernel on a miss), launch count advanced,
    packed-vs-AoS bit-identical, agreement with the plain RGB solver.
+4b. ``front``  the solver front end's two passes
+   (``prep_cuda``, ``finish_cuda``, around every kernel-backend solve on
+   the card) at the main paths' shapes (the figure-3 batch in float32 and
+   float64, three serving flushes, the crowd's step, the LP clip's batch)
+   held against the eager chain they replace (their plain version) bit for
+   bit; each timed on the device and as an eager call beside the chain,
+   ``prep`` beside its bytes bound.  Every phase that counts ``rgb_cuda``'s
+   launches over a run (``Launches``) counts ``prep``'s and ``finish``'s
+   over the same run, prints them beside (``front_launches``) and checks
+   one of each with every kernel launch of an unshuffled solve.
 5. ``serve``   ``BatchScheduler`` over every visible card (``n_devices``)
    answering 8192 single-LP requests of mixed
    size and kind: every future resolves, a sample re-solved directly is
@@ -233,6 +243,65 @@ def check(cond: bool, msg: str) -> None:
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def front_ok(n: dict) -> bool:
+    """Whether launch counts ``n`` (``Launches.counts``) show one ``prep``
+    and one ``finish`` with each kernel launch that an unshuffled solve
+    made: every such solve took the fused front end."""
+    return (n["prep_cuda"] == n["finish_cuda"]
+            == n["rgb_cuda"] - n["shuffled"])
+
+
+class Launches:
+    """The kernel's and the solver front end's launches over one run.
+
+    ``with Launches() as n:`` sets ``rgb_cuda``'s, ``prep_cuda``'s and
+    ``finish_cuda``'s launch counts to 0 and reads them on exit into
+    ``n.rgb``, ``n.prep`` and ``n.finish``.  ``n.shuffled`` counts the
+    solves of the run that would have taken the fused front end but for a
+    shuffled spec (``solver._takes_fused`` is watched meanwhile): those
+    keep the eager chain, so their kernel launches come without ``prep``
+    and ``finish``."""
+
+    def __enter__(self):
+        import threading
+
+        from repro_torch.kernels.batch_lp import (finish_cuda, prep_cuda,
+                                                  rgb_cuda)
+        from repro_torch.solver import solver as S
+        real = self._real = S._takes_fused
+        lock = threading.Lock()
+        self.shuffled = 0
+
+        def watch(spec, device, generator, batch, m):
+            if generator is not None and real(spec, device, None, batch, m):
+                with lock:
+                    self.shuffled += 1
+            return real(spec, device, generator, batch, m)
+
+        S._takes_fused = watch
+        rgb_cuda.launches = prep_cuda.launches = finish_cuda.launches = 0
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        from repro_torch.kernels.batch_lp import (finish_cuda, prep_cuda,
+                                                  rgb_cuda)
+        from repro_torch.solver import solver as S
+        S._takes_fused = self._real
+        self.rgb, self.prep = rgb_cuda.launches, prep_cuda.launches
+        self.finish = finish_cuda.launches
+        return False
+
+    def counts(self) -> dict:
+        return {"rgb_cuda": self.rgb, "prep_cuda": self.prep,
+                "finish_cuda": self.finish, "shuffled": self.shuffled}
+
+    def check_front(self, what: str) -> None:
+        check(front_ok(self.counts()),
+              f"{what}: launches {self.counts()}: an unshuffled solve took "
+              "the eager front end, or prep and finish did not launch once "
+              "each with the kernel")
 
 
 # ---------------------------------------------------------------------------
@@ -530,7 +599,6 @@ def phase_solver(device, card: str, entries: list, shapes=SHAPES) -> None:
     from repro_torch.core import (batch_from_numpy, normalize_packed,
                                   solve_rgb_packed)
     from repro_torch.core.packed import PackedLPBatch
-    from repro_torch.kernels.batch_lp import rgb_cuda
     from repro_torch.solver import SolverSpec
 
     from repro_torch.tune import active_table
@@ -565,13 +633,14 @@ def phase_solver(device, card: str, entries: list, shapes=SHAPES) -> None:
                   f"active table names {named!r}")
             batch = batch_from_numpy(A32, b32, c32, device=device)
             packed = batch.pack()
-            rgb_cuda.launches = 0
-            sol_a = solver.solve(batch)
-            sol_p = solver.solve(packed)
-            torch.cuda.synchronize()
-            launches = rgb_cuda.launches
+            with Launches() as n:
+                sol_a = solver.solve(batch)
+                sol_p = solver.solve(packed)
+                torch.cuda.synchronize()
+            launches = n.rgb
             check(launches == 2,
                   f"two kernel solves made {launches} kernel launches")
+            n.check_front("solver")
             by_key[((B, 4, m), dtype, chunk)]["launches"] = launches
             check(torch.equal(sol_a.x, sol_p.x)
                   and torch.equal(sol_a.feasible, sol_p.feasible)
@@ -617,6 +686,111 @@ def phase_solver(device, card: str, entries: list, shapes=SHAPES) -> None:
                   "card": card})
 
 
+def kernels_ms(fn, n: int = 5) -> float:
+    """Device milliseconds of ``fn``'s kernels a call (the profiler's sum
+    over ``n`` calls after a warm-up): the device's work, without the
+    gaps the host leaves between launches."""
+    fn()
+    return device_kernels(lambda: [fn() for _ in range(n)])["device_ms"] / n
+
+
+# The solver front end's passes at the main paths' shapes: (path, layout,
+# B, m, dtype).  The solver's figure-3 batch, the serving flushes (packed,
+# already padded to their bucket), the crowd's step (16,384 agents, 8
+# constraints each) and the LP clip's batch (15 leaves, 6 constraints).
+FRONT_SHAPES = (("solver", "aos", 16384, 256, "float32"),
+                ("solver", "aos", 16384, 256, "float64"),
+                ("serve", "packed", 16, 128, "float32"),
+                ("serve", "packed", 64, 1024, "float32"),
+                ("serve", "packed", 1024, 1024, "float32"),
+                ("crowd", "aos", 16384, 8, "float32"),
+                ("train", "aos", 15, 6, "float32"))
+
+
+def front_entry(device, card: str, path: str, layout: str, B: int, m: int,
+                dtype: str, M: float = 1.0e4) -> dict:
+    """``prep_cuda`` and ``finish_cuda`` at one shape against the eager
+    chain they replace (the plain version), bit for bit, on a mixed batch
+    of non-unit normals; each timed on the device (a CUDA graph of 20
+    calls; the chain, which copies a host constant, by the profiler's sum
+    of its kernels) and as an eager call, ``prep`` beside its bytes bound
+    (the input read once, ``L``, ``c`` and ``m_valid`` written once)."""
+    from repro_torch.core import (batch_from_numpy, normalize_batch,
+                                  normalize_packed, pack, pad_packed,
+                                  pad_packed_batch_dim)
+    from repro_torch.kernels.batch_lp import (LANE, finish_cuda, prep_cuda,
+                                              rgb_cuda)
+    from repro_torch.solver import SolverSpec
+    rng = np.random.default_rng([SEED, 14, B, m])
+    A, b, c, mv = mixed_arrays(rng, B, m)
+    A = A * rng.uniform(0.5, 2.0, (B, m, 1))   # not unit: normalize works
+    b = b * np.linalg.norm(A, axis=-1)
+    npdt = np.dtype(dtype)
+    lp = batch_from_numpy(A.astype(npdt), b.astype(npdt), c.astype(npdt),
+                          mv, device=device)
+    src = lp.pack() if layout == "packed" else lp
+    tile = SolverSpec(backend="kernel", dtype=dtype).resolve_for_shape(
+        m, B, platform="cuda").tile
+    m_pad, b_pad = -(-m // LANE) * LANE, -(-B // tile) * tile
+    args = (src.L, None) if layout == "packed" else (src.A, src.b)
+
+    def prep():
+        return prep_cuda(*args, src.c, src.m_valid, m_pad=m_pad,
+                         b_pad=b_pad)
+
+    def eager():
+        pb = normalize_packed(src) if layout == "packed" else pack(
+            normalize_batch(src))
+        pb = pad_packed_batch_dim(pad_packed(pb, m_pad), b_pad)
+        return (pb.L.contiguous(), pb.c.contiguous(),
+                pb.m_valid.to(torch.int32).contiguous())
+
+    got, want = prep(), eager()
+    prep_equal = all(g.shape == w.shape and torch.equal(bits(g), bits(w))
+                     for g, w in zip(got, want))
+    x, f = rgb_cuda(*got, M=M, tile=tile)
+    cc = got[1]
+
+    def finish():
+        return finish_cuda(x, f, cc, B)
+
+    def objective():
+        return (cc[:B] * x[:B]).sum(-1), f[:B, 0].to(torch.bool)
+
+    (obj, ok), (obj_e, ok_e) = finish(), objective()
+    finish_equal = torch.equal(bits(obj), bits(obj_e)) and torch.equal(
+        ok, ok_e)
+    item = npdt.itemsize
+    rows = 4 if layout == "packed" else 3
+    nbytes = (B * (rows * m * item + 2 * item + 4)
+              + b_pad * (4 * m_pad * item + 2 * item + 4))
+    entry = {
+        "name": "prep_cuda", "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": "the eager normalise, pack and pad", "path": path,
+        "layout": layout, "dtype": dtype, "shape": [B, m],
+        "out_shape": [b_pad, 4, m_pad], "prep_bits_equal": prep_equal,
+        "finish_bits_equal": finish_equal,
+        "ms": time_device(prep), "plain_ms": kernels_ms(eager),
+        "call_ms": time_launches(prep), "plain_call_ms": time_launches(eager),
+        "bound_ms": nbytes / PEAKS.hbm_bytes_s * 1e3, "bound_by": "bytes",
+        "bytes": nbytes, "finish_ms": time_device(finish),
+        "finish_plain_ms": kernels_ms(objective),
+        "finish_call_ms": time_launches(finish),
+        "finish_plain_call_ms": time_launches(objective), "card": card}
+    check(prep_equal, f"prep_cuda differs from the eager chain: {entry}")
+    check(finish_equal, f"finish_cuda differs from the eager objective: "
+          f"{entry}")
+    return entry
+
+
+def phase_front(device, card: str) -> None:
+    """The front end's passes at every main path's shape (run early: a
+    long process's later profiler sessions can come back without device
+    activity)."""
+    entries = [front_entry(device, card, *shape) for shape in FRONT_SHAPES]
+    emit({"phase": "front", "entries": entries, "card": card})
+
+
 GEOMETRY = ("bucket_m", "b_pad", "dtype", "tile", "chunk")
 
 
@@ -636,7 +810,6 @@ def phase_serve(devices, card: str, n_requests: int = SERVE_REQUESTS,
                 max_batch: int = 1024) -> dict:
     """The serving entry point: a stream of single-LP requests."""
     from repro_torch.core import pack_call_count
-    from repro_torch.kernels.batch_lp import rgb_cuda
     from repro_torch.serve_lp import BatchScheduler
     from repro_torch.serve_lp.bench import BenchConfig, make_request
     from repro_torch.solver import SolverSpec
@@ -662,12 +835,11 @@ def phase_serve(devices, card: str, n_requests: int = SERVE_REQUESTS,
     warm.close()
 
     packs0 = pack_call_count()
-    rgb_cuda.launches = 0
     sched = BatchScheduler(spec, max_batch=max_batch, max_wait_s=0.005,
                            devices=devices)
-    with sched:
+    with Launches() as n, sched:
         results, t_submit, t_total = drive(sched, reqs)
-    launches = rgb_cuda.launches
+    launches = n.rgb
     repacks = pack_call_count() - packs0
     snap = sched.metrics.snapshot(sched.cache.stats())
     pinned = sched.buffers.pinned
@@ -688,6 +860,7 @@ def phase_serve(devices, card: str, n_requests: int = SERVE_REQUESTS,
           f"{launches} launches but the executable cache served "
           f"{exec_specs}")
     check(repacks == 0, f"{repacks} AoS->SoA repacks on the serving path")
+    n.check_front("serve")
     for (A, b, c, kind), r in zip(reqs, results):
         check(np.isfinite(r.x).all() and r.x.shape == (2,),
               "non-finite serving answer")
@@ -717,6 +890,7 @@ def phase_serve(devices, card: str, n_requests: int = SERVE_REQUESTS,
            "flush_reasons": snap["flush_reasons"],
            "fused_flushes": snap["fused_flushes"],
            "launches": launches, "launches_metrics": snap["launches_total"],
+           "front_launches": n.counts(),
            "inflight_max": snap["inflight_max"],
            "assemble_seconds": snap["assemble_seconds"],
            "solve_seconds": snap["solve_seconds"],
@@ -932,7 +1106,6 @@ def phase_rpc(devices, card: str) -> dict:
     import http.client
     import threading
 
-    from repro_torch.kernels.batch_lp import rgb_cuda
     from repro_torch.obs import (Tracer, check_span_chains, device_idle,
                                  to_chrome_trace)
     from repro_torch.obs.export import validate_chrome_trace
@@ -975,16 +1148,16 @@ def phase_rpc(devices, card: str) -> dict:
             errors.append(repr(e))
 
     try:
-        rgb_cuda.launches = 0
-        t0 = time.perf_counter()
-        threads = [threading.Thread(target=client, args=(t,))
-                   for t in range(RPC_CLIENTS)]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(timeout=600)
-        wall = time.perf_counter() - t0
-        launches = rgb_cuda.launches
+        with Launches() as n:
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client, args=(t,))
+                       for t in range(RPC_CLIENTS)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            wall = time.perf_counter() - t0
+        launches = n.rgb
         check(not errors and all(not th.is_alive() for th in threads),
               f"RPC clients failed: {errors}")
         conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
@@ -1013,6 +1186,7 @@ def phase_rpc(devices, card: str) -> dict:
           f"not every request answered 200: "
           f"{sorted(set(statuses))}")
     check(launches > 0, "the RPC flushes launched no kernel")
+    n.check_front("rpc")
     check(deadline_status == 504
           and json.loads(deadline_body)["error"]["code"]
           == "deadline_exceeded",
@@ -1054,7 +1228,8 @@ def phase_rpc(devices, card: str) -> dict:
            "lps_per_s": n_lps / wall,
            "latency_p50_ms": float(np.percentile(lat_ok, 50) * 1e3),
            "latency_p99_ms": float(np.percentile(lat_ok, 99) * 1e3),
-           "launches": launches, "flushes": sched.metrics.n_flushes,
+           "launches": launches, "front_launches": n.counts(),
+           "flushes": sched.metrics.n_flushes,
            "deadline_status": deadline_status, "quota_status": quota_status,
            "slo_measured_buckets": measured,
            "slo_plans": {str(bm): {"max_batch": p.max_batch,
@@ -1105,13 +1280,13 @@ def spread_ms(seconds: list) -> list:
 
 def phase_bench(devices, card: str) -> dict:
     """Each mode of the serving benchmark with ``--method kernel``, its
-    own assertions on, ``rgb_cuda``'s count set to 0 just before it and
-    read just after; then ``--sharding pmap``, which must raise the
-    reference's ``ValueError``.  Returns the geometries the modes
+    own assertions on, the launch counts set to 0 just before it and
+    read just after (one ``prep`` and one ``finish`` a kernel launch);
+    then ``--sharding pmap``, which must raise the reference's
+    ``ValueError``.  Returns the geometries the modes
     launched (flushes summed over modes)."""
     import tempfile
 
-    from repro_torch.kernels.batch_lp import rgb_cuda
     from repro_torch.serve_lp import bench
 
     geoms: dict = {}
@@ -1122,24 +1297,26 @@ def phase_bench(devices, card: str) -> dict:
             argv = ["--method", "kernel"] + [
                 os.path.join(tmp, "trace.json") if f is None else f
                 for f in flags]
-            rgb_cuda.launches = 0
-            t0 = time.perf_counter()
-            if over:
-                snap, sched = bench.run_traffic(dataclasses.replace(
-                    bench.parse_config(argv), **over), devices=devices,
-                    quiet=True)
-            else:
-                snap, sched = bench.main(argv, devices=devices, quiet=True)
-            seconds = time.perf_counter() - t0
-            launches = rgb_cuda.launches
+            with Launches() as n:
+                t0 = time.perf_counter()
+                if over:
+                    snap, sched = bench.run_traffic(dataclasses.replace(
+                        bench.parse_config(argv), **over), devices=devices,
+                        quiet=True)
+                else:
+                    snap, sched = bench.main(argv, devices=devices,
+                                             quiet=True)
+                seconds = time.perf_counter() - t0
+            launches = n.rgb
             check(launches > 0, f"bench {mode}: rgb_cuda was not launched")
+            n.check_front(f"bench {mode}")
             specs = exec_specs_of(sched)
             for es in specs:
                 key = tuple(es[k] for k in GEOMETRY)
                 geoms[key] = geoms.get(key, 0) + es["flushes"]
             out = {"phase": "bench", "mode": mode, "argv": argv,
                    "overrides": over, "launches": launches,
-                   "seconds": seconds}
+                   "front_launches": n.counts(), "seconds": seconds}
             if mode == "rpc":
                 cl, ov = snap["closed_loop"], snap["overload"]
                 out.update({
@@ -1219,7 +1396,6 @@ def phase_crowd(device, card: str) -> tuple:
     from the same start through ``BatchScheduler``; the step lines of the
     first 10 steps and the positions after them must match.  Returns the
     phase line and the first step's LP batch (numpy)."""
-    from repro_torch.kernels.batch_lp import rgb_cuda
     from repro_torch.serve_lp import BatchScheduler
     crowd = import_example("crowd_sim_torch")
 
@@ -1254,17 +1430,17 @@ def phase_crowd(device, card: str) -> tuple:
     solver = spec.build(device=device)
     check(solver.spec.backend == "kernel" and solver.device == device,
           f"the crowd sim's solver is not the kernel on the card: {solver}")
-    rgb_cuda.launches = 0
-    at_d, ms_d, lines_d, gap_d = run(
-        lambda p: crowd.sim_step(p, goal, solver), CROWD_DIRECT_STEPS)
-    launches_d = rgb_cuda.launches
+    with Launches() as n_d:
+        at_d, ms_d, lines_d, gap_d = run(
+            lambda p: crowd.sim_step(p, goal, solver), CROWD_DIRECT_STEPS)
+    launches_d = n_d.rgb
     sched = BatchScheduler(spec, max_batch=n, devices=[device])
     try:
-        rgb_cuda.launches = 0
-        at_s, ms_s, lines_s, gap_s = run(
-            lambda p: crowd.sim_step_served(p, goal, sched),
-            CROWD_SERVED_STEPS)
-        launches_s = rgb_cuda.launches
+        with Launches() as n_s:
+            at_s, ms_s, lines_s, gap_s = run(
+                lambda p: crowd.sim_step_served(p, goal, sched),
+                CROWD_SERVED_STEPS)
+        launches_s = n_s.rgb
         snap = sched.metrics.snapshot(sched.cache.stats())
         specs = exec_specs_of(sched)
     finally:
@@ -1275,6 +1451,8 @@ def phase_crowd(device, card: str) -> tuple:
     check(launches_s >= CROWD_SERVED_STEPS,
           f"crowd: {launches_s} launches in {CROWD_SERVED_STEPS} served "
           "steps")
+    n_d.check_front("crowd direct")
+    n_s.check_front("crowd served")
     same = [t for t in sorted(logged) if lines_d[t] == lines_s[t]]
     check(len(same) == len(logged),
           f"crowd: direct and served step lines differ: "
@@ -1294,6 +1472,8 @@ def phase_crowd(device, card: str) -> tuple:
            "direct_first_step_ms": ms_d[0],
            "served_step_ms_median": s_ms, "served_lps": n / (s_ms / 1e3),
            "launches_direct": launches_d, "launches_served": launches_s,
+           "front_launches_direct": n_d.counts(),
+           "front_launches_served": n_s.counts(),
            "served_flushes": snap["n_flushes"], "exec_specs": specs,
            "lines": [lines_d[t] for t in sorted(lines_d)],
            "lines_served": [lines_s[t] for t in sorted(lines_s)],
@@ -1314,21 +1494,21 @@ QUICKSTART_PLAIN = 512
 def phase_quickstart(device, card: str) -> dict:
     """``examples/quickstart_torch.py`` on the card (B=4096, m=128): the
     naive, rgb and kernel backends agree, pre-packed equals AoS in bits,
-    and the kernel backend launched ``rgb_cuda``."""
+    and the kernel backend launched ``rgb_cuda`` (its spec shuffles, so
+    without ``prep`` and ``finish``)."""
     import contextlib
     import io
 
-    from repro_torch.kernels.batch_lp import rgb_cuda
     quickstart = import_example("quickstart_torch")
-    rgb_cuda.launches = 0
     buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
+    with Launches() as n, contextlib.redirect_stdout(buf):
         res = quickstart.main(["--plain-slice", str(QUICKSTART_PLAIN)],
                               device=device)
-    launches = rgb_cuda.launches
+    launches = n.rgb
     check(launches >= 2, f"quickstart: {launches} rgb_cuda launches")
+    n.check_front("quickstart")
     out = {"phase": "quickstart", **res, "launches": launches,
-           "card": card}
+           "front_launches": n.counts(), "card": card}
     emit(out)
     return out
 
@@ -1363,21 +1543,23 @@ def drive_train(ckpt_dir: str) -> dict:
     """The training entry point at full width: 20 steps checkpointed at
     step 10 (and at the end), then a second run to step 22 resumed from
     the directory.  Returns what the logs and counters say."""
-    from repro_torch.kernels.batch_lp import rgb_cuda
     common = ["--arch", TRAIN_ARCH, "--lp-clip", "--batch", str(TRAIN_BATCH),
               "--seq", str(TRAIN_SEQ), "--log-every", "1",
               "--ckpt-every", str(CKPT_EVERY), "--ckpt-dir", ckpt_dir]
     torch.cuda.reset_peak_memory_stats()
-    rgb_cuda.launches = 0
-    t0 = time.perf_counter()
-    _, log1 = run_trainer(common + ["--steps", str(TRAIN_STEPS)])
-    run1_s = time.perf_counter() - t0
-    launches1 = rgb_cuda.launches
+    with Launches() as n1:
+        t0 = time.perf_counter()
+        _, log1 = run_trainer(common + ["--steps", str(TRAIN_STEPS)])
+        run1_s = time.perf_counter() - t0
+    launches1 = n1.rgb
     peak = torch.cuda.max_memory_allocated()
-    t0 = time.perf_counter()
-    _, log2 = run_trainer(common + ["--steps", str(RESUME_STEPS)])
-    run2_s = time.perf_counter() - t0
-    launches2 = rgb_cuda.launches - launches1
+    with Launches() as n2:
+        t0 = time.perf_counter()
+        _, log2 = run_trainer(common + ["--steps", str(RESUME_STEPS)])
+        run2_s = time.perf_counter() - t0
+    launches2 = n2.rgb
+    n1.check_front("train")
+    n2.check_front("train, resumed")
     rows = [(int(a), float(b), float(c), float(d))
             for a, b, c, d in TRAIN_LOG.findall(log1 + log2)]
     steps = [r[0] for r in rows]
@@ -1401,7 +1583,9 @@ def drive_train(ckpt_dir: str) -> dict:
             "step_ms": [r[2] for r in rows], "median_step_ms": median_ms,
             "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (median_ms / 1e3),
             "max_memory_allocated": peak, "run_seconds": [run1_s, run2_s],
-            "launches": launches1 + launches2}
+            "launches": launches1 + launches2,
+            "front_launches": {k: v + n2.counts()[k]
+                               for k, v in n1.counts().items()}}
 
 
 def train_matmul_flops(cfg, lay, B: int, S: int) -> float:
@@ -1633,12 +1817,11 @@ TRAIN_SSM_ARCH, TRAIN_SSM_STEPS = "mamba2-1.3b", 6
 def phase_train_ssm(device, card: str) -> tuple:
     """``repro_torch.launch.train.main`` on mamba2-1.3b at full width in
     bf16 with ``--lp-clip``, 8 x 512 tokens, read right after its run
-    (rgb_cuda's count set to 0 just before); then one step of a fresh
+    (the launch counts set to 0 just before); then one step of a fresh
     model traced, the LP batch of that step, and card-vs-CPU parity on
     the smoke config.  Returns the phase line and the LP batch."""
     from repro_torch.configs import ARCHS
     from repro_torch.data.pipeline import TokenSource, for_model
-    from repro_torch.kernels.batch_lp import rgb_cuda
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.steps import make_train_step
     from repro_torch.optim import AdamW, sync_duplicated_grads
@@ -1648,11 +1831,11 @@ def phase_train_ssm(device, card: str) -> tuple:
     t0 = time.perf_counter()
     free_card()
     torch.cuda.reset_peak_memory_stats()
-    rgb_cuda.launches = 0
-    _, log = run_trainer(["--arch", arch, "--lp-clip", "--batch",
-                          str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
-                          "--log-every", "1", "--steps", str(steps)])
-    launches = rgb_cuda.launches
+    with Launches() as n:
+        _, log = run_trainer(["--arch", arch, "--lp-clip", "--batch",
+                              str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                              "--log-every", "1", "--steps", str(steps)])
+    launches = n.rgb
     peak = torch.cuda.max_memory_allocated()
     run_s = time.perf_counter() - t0
     rows = [(int(a), float(b), float(c), float(d))
@@ -1666,6 +1849,7 @@ def phase_train_ssm(device, card: str) -> tuple:
           f"{arch}: lp_s1 outside [0, 1]: {s1s}")
     check(launches == steps, f"{arch}: rgb_cuda launched {launches} times "
           f"in {steps} steps")
+    n.check_front(arch)
     dts = sorted(r[2] for r in rows[1:])      # the first step starts up
     median_ms = dts[len(dts) // 2]
     free_card()
@@ -1707,7 +1891,8 @@ def phase_train_ssm(device, card: str) -> tuple:
            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (median_ms / 1e3),
            **train_roofline(cfg, median_ms, count),
            "max_memory_allocated": peak, "run_seconds": run_s,
-           "launches": launches, "lp_problems": int(lp_batch[1].shape[0]),
+           "launches": launches, "front_launches": n.counts(),
+           "lp_problems": int(lp_batch[1].shape[0]),
            "step_kernels": step_kernels,
            "card_vs_cpu": card_vs_cpu(device, arch),
            "seconds": time.perf_counter() - t0, "card": card}
@@ -2088,7 +2273,6 @@ def _dist_train(mesh, cfg, batch: int, seq: int, *, lp_spy=None,
     whole parameters after step 1 and at the end (on the card)."""
     from repro_torch import dist as D
     from repro_torch.data.pipeline import TokenSource, for_model
-    from repro_torch.kernels.batch_lp import rgb_cuda
     from repro_torch.launch.steps import make_train_step
     from repro_torch.optim import AdamW
     from repro_torch.optim import lp_clip as lp_clip_mod
@@ -2115,28 +2299,28 @@ def _dist_train(mesh, cfg, batch: int, seq: int, *, lp_spy=None,
         _, g = prog.grads(params, first)
         grads_1 = _whole(prog.model, g)
         del g
-    rgb_cuda.launches = 0
     try:
-        for step in range(DIST_STEPS):
-            bt = {k: torch.as_tensor(v, device=dev)
-                  for k, v in src.global_batch(step).items()}
-            D.reset_counts()
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            params, state, m, _ = prog.step(params, state, bt, {})
-            b.record()
-            torch.cuda.synchronize(dev)
-            out["step_ms"].append(a.elapsed_time(b))
-            out["loss"].append(float(m["loss"]))
-            out["lp_s1"].append(float(m["lp_s1"]))
-            out["collectives"] = D.counts()
-            if step == 0 and "params_1" in keep:
-                out["params_1"] = _whole(prog.model)
-                out["grads_1"] = grads_1
+        with Launches() as n:
+            for step in range(DIST_STEPS):
+                bt = {k: torch.as_tensor(v, device=dev)
+                      for k, v in src.global_batch(step).items()}
+                D.reset_counts()
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                params, state, m, _ = prog.step(params, state, bt, {})
+                b.record()
+                torch.cuda.synchronize(dev)
+                out["step_ms"].append(a.elapsed_time(b))
+                out["loss"].append(float(m["loss"]))
+                out["lp_s1"].append(float(m["lp_s1"]))
+                out["collectives"] = D.counts()
+                if step == 0 and "params_1" in keep:
+                    out["params_1"] = _whole(prog.model)
+                    out["grads_1"] = grads_1
     finally:
         lp_clip_mod.make_batch = real
-    out["launches"] = rgb_cuda.launches
+    out["launches"], out["front_launches"] = n.rgb, n.counts()
     out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     if "final" in keep:
         out["final"] = _whole(prog.model)
@@ -2229,7 +2413,7 @@ def _rank_nccl(rank: int, world: int, root: str) -> dict:
     run = _dist_train(mesh, cfg, DIST_NCCL_BATCH, DIST_NCCL_SEQ,
                       keep=("final",) if world == 1 else ())
     res = {k: run[k] for k in ("loss", "lp_s1", "step_ms", "collectives",
-                               "launches", "peak_gb")}
+                               "launches", "front_launches", "peak_gb")}
     res["backend"] = mesh.backend
     if host is not None:
         res["bits_equal_hostmesh"] = (
@@ -2307,7 +2491,7 @@ def _rank_gloo(rank: int, world: int, root: str) -> dict:
     for name, run in runs.items():
         res[name] = {k: run[k] for k in ("loss", "lp_s1", "step_ms",
                                          "collectives", "launches",
-                                         "peak_gb")}
+                                         "front_launches", "peak_gb")}
     D.barrier(mesh)
     if rank == 0:
         # the one-card float32 references, on rank 0 while the others wait
@@ -2430,6 +2614,9 @@ def phase_dist(device, card: str) -> tuple:
         hold(all(r["launches"] == DIST_STEPS for r in nccl),
              f"dist nccl: rgb_cuda launches {[r['launches'] for r in nccl]},"
              f" not one a step")
+        hold(all(front_ok(r["front_launches"]) for r in nccl),
+             f"dist nccl: launches {[r['front_launches'] for r in nccl]}: "
+             "a solve took the eager front end")
         if world == 1:
             hold(r0["bits_equal_hostmesh"], "dist nccl: the 1x1 NCCL mesh "
                  "differs in bits from the HostMesh step")
@@ -2445,7 +2632,8 @@ def phase_dist(device, card: str) -> tuple:
                       "step_ms": [r["step_ms"] for r in nccl],
                       "peak_gb": [r["peak_gb"] for r in nccl],
                       "collectives_per_step": r0["collectives"],
-                      "rgb_cuda_launches": [r["launches"] for r in nccl]})
+                      "rgb_cuda_launches": [r["launches"] for r in nccl],
+                      "front_launches": [r["front_launches"] for r in nccl]})
         gloo = spawn_ranks("gloo", DIST_GLOO_WORLD, root)
         g0 = gloo[0]
         lps = [np.load(os.path.join(root, f"lp_rank{r}.npz"))
@@ -2459,6 +2647,8 @@ def phase_dist(device, card: str) -> tuple:
             g = g0[name]
             hold(all(r[name]["launches"] == DIST_STEPS for r in gloo),
                  f"dist {name}: rgb_cuda not launched once a step a rank")
+            hold(all(front_ok(r[name]["front_launches"]) for r in gloo),
+                 f"dist {name}: a solve took the eager front end")
             hold(all(r[name]["lp_s1"] == g["lp_s1"] for r in gloo),
                  f"dist {name}: lp_s1 differs between ranks")
             # step 1's gradients and the leaves after it where the gradient
@@ -2487,7 +2677,9 @@ def phase_dist(device, card: str) -> tuple:
                 "step_ms": [r[name]["step_ms"] for r in gloo],
                 "peak_gb": [r[name]["peak_gb"] for r in gloo],
                 "collectives_per_step": g["collectives"],
-                "rgb_cuda_launches": [r[name]["launches"] for r in gloo]})
+                "rgb_cuda_launches": [r[name]["launches"] for r in gloo],
+                "front_launches": [r[name]["front_launches"]
+                                   for r in gloo]})
         s = g0["serve"]
         hold(s["logit_err"] <= DIST_SERVE_TOL,
              f"dist serve: (1, 4) logits {s['logit_err']} off one card")
@@ -2634,7 +2826,6 @@ def _dryrun_vs_card(device, card: str, name: str) -> tuple:
     step's LP batch and its rgb_cuda launches."""
     from repro_torch.configs import ARCHS, InputShape
     from repro_torch.data.pipeline import TokenSource, for_model
-    from repro_torch.kernels.batch_lp import rgb_cuda
     from repro_torch.launch import steps
     from repro_torch.launch.dryrun import dryrun_step
     from repro_torch.launch.mesh import make_host_mesh
@@ -2667,16 +2858,18 @@ def _dryrun_vs_card(device, card: str, name: str) -> tuple:
         seen.append(tuple(t.detach().cpu().numpy() for t in (A, b, c)))
         return real(A, b, c, *a, **k)
     lp_clip_mod.make_batch = spy
-    rgb_cuda.launches = 0
     try:
-        peak, before = _card_peak(prog.step, params, state, batch, {})
+        with Launches() as n:
+            peak, before = _card_peak(prog.step, params, state, batch, {})
     finally:
         lp_clip_mod.make_batch = real
-    launches = rgb_cuda.launches
+    launches = n.rgb
+    n.check_front("dryrun's card step")
     lines.append(_dryrun_line("train", dry, peak, before, card, {
         "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "dtype": cfg.dtype,
         "count_call_flops": counted.flops, "count_call_ran_on":
-        counted.ran_on, "rgb_cuda_launches": launches}))
+        counted.ran_on, "rgb_cuda_launches": launches,
+        "front_launches": n.counts()}))
     del prog, params, state, batch
     free_card()
     # one decode step
@@ -3023,10 +3216,10 @@ def phase_paper(device, card: str) -> dict:
           "paper: no dry-run records to report on")
     hold = PaperHold()
     t0 = time.perf_counter()
-    rgb_cuda.launches = 0
     rgb_cuda.geometries.clear()
-    drive = _paper_drive(device, card, hold)
-    launches, geometries = rgb_cuda.launches, dict(rgb_cuda.geometries)
+    with Launches() as n:
+        drive = _paper_drive(device, card, hold)
+    launches, geometries = n.rgb, dict(rgb_cuda.geometries)
     drive_s = time.perf_counter() - t0
     checks = _paper_checks(device, hold)
     for line in checks + _paper_summaries(drive, card, host_cpu()):
@@ -3052,9 +3245,11 @@ def phase_paper(device, card: str) -> dict:
           "paper: the roofline report shows a failed cell")
     check(launches == sum(geometries.values()) and launches > 0,
           f"paper: {launches} launches, by geometry {geometries}")
+    n.check_front("paper")
     emit({"phase": "paper", "part": "done", "seconds":
           time.perf_counter() - t0, "drive_s": drive_s,
           "by_part_s": drive["seconds"], "rgb_cuda_launches": launches,
+          "front_launches": n.counts(),
           "geometries": len(geometries), "kernel_rows_held": len(checks),
           "card": card})
     return {"geometries": geometries, "launches": launches}
@@ -3102,6 +3297,7 @@ def main() -> int:
         entries = phase_kernels(device, card)
         rgb_cuda.launches = 0
         phase_solver(device, card, entries)
+        phase_front(device, card)
         serve = phase_serve(default_devices(), card)
         phase_pdhg(device, card)
         phase_tune(device, card)

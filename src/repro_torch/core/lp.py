@@ -28,6 +28,10 @@ from repro_torch.device import DeviceLike, as_device
 PAD_A = (0.0, 0.0)
 PAD_B = 1.0
 
+# Constraint normals shorter than this are left unscaled by the
+# normalisers (padding rows have norm 0).
+NORM_EPS = 1e-30
+
 
 @dataclasses.dataclass(frozen=True)
 class LPBatch:
@@ -213,7 +217,7 @@ def _norm_scale(n: torch.Tensor, eps: float) -> torch.Tensor:
     return torch.where(n < eps, 1.0, 1.0 / torch.clamp(n, min=eps))
 
 
-def normalize_batch(batch: LPBatch, eps: float = 1e-30) -> LPBatch:
+def normalize_batch(batch: LPBatch, eps: float = NORM_EPS) -> LPBatch:
     """Scale every constraint so ||a_h|| = 1 (zero-norm padding rows kept).
 
     Normalisation makes every epsilon threshold in the solver an absolute

@@ -20,9 +20,11 @@ bit-identity needs the default ``m_pad == m`` pack: extra constraint
 padding — in either layout — changes the shuffle's score-draw shape,
 leaving results equal only to the usual order-invariance tolerance.)
 
-``pack`` is the only AoS -> SoA conversion in the tree and counts its
-invocations (:func:`pack_call_count`); the serving layer's zero-repack
-guarantee is asserted against that counter.
+``pack`` and the kernel backend's fused front end on the card (``prep``,
+in ``repro_torch.kernels.batch_lp``, which packs an AoS batch as it
+normalises it) are the only AoS -> SoA conversions in the tree, and both
+count their invocations (:func:`pack_call_count`); the serving layer's
+zero-repack guarantee is asserted against that counter.
 """
 from __future__ import annotations
 
@@ -32,19 +34,25 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.lp import (PAD_B, LPBatch, _norm_scale, _row_norms,
-                                 _shuffle_order)
+from repro_torch.core.lp import (NORM_EPS, PAD_B, LPBatch, _norm_scale,
+                                 _row_norms, _shuffle_order)
 from repro_torch.device import DeviceLike, as_device
 
-# AoS -> SoA conversion counter.  Incremented by ``pack`` only: a hot
-# path that never repacks leaves it untouched.
+# AoS -> SoA conversion counter.  Incremented by ``pack`` and by an AoS
+# ``prep`` only: a hot path that never repacks leaves it untouched.
 _PACK_CALLS = 0
 
 
 def pack_call_count() -> int:
-    """Total ``pack`` invocations in this process.  Diff around a code
-    path to prove it does no AoS -> SoA repacking."""
+    """Total AoS -> SoA conversions in this process.  Diff around a code
+    path to prove it does no repacking."""
     return _PACK_CALLS
+
+
+def count_pack() -> None:
+    """Count one AoS -> SoA conversion."""
+    global _PACK_CALLS
+    _PACK_CALLS += 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,8 +127,7 @@ def pack(batch: LPBatch, m_pad: Optional[int] = None) -> PackedLPBatch:
     consumers with alignment needs (the kernel wants ``LANE``
     multiples) pad further via :func:`pad_packed`.
     """
-    global _PACK_CALLS
-    _PACK_CALLS += 1
+    count_pack()
     B, m = batch.batch, batch.m
     if m_pad is None:
         m_pad = m
@@ -213,7 +220,7 @@ def split_packed(pb: PackedLPBatch, sizes: list[int],
     return out
 
 
-def normalize_packed(pb: PackedLPBatch, eps: float = 1e-30
+def normalize_packed(pb: PackedLPBatch, eps: float = NORM_EPS
                      ) -> PackedLPBatch:
     """Scale every constraint column so ||a_h|| = 1 — the packed twin of
     ``lp.normalize_batch``, computing the identical scalar pipeline so

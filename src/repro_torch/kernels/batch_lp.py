@@ -39,6 +39,12 @@ dispatcher sees the kernel as one op: the CUDA implementation launches
 it, the CPU one runs ``rgb_plain``, and the fake (``meta``) one gives
 the outputs' shapes, which lets a dry run on ``meta`` tensors count the
 kernel (its bytes, and its FLOPs by the formula registered below).
+
+``prep_cuda`` and ``finish_cuda`` launch the solver front end's two passes
+around the kernel, from the same library: one normalises, packs and pads a
+batch into the kernel's arrays, the other computes the objective and the
+flags.  The solver takes them for the kernel backend on the card; their
+plain version is its eager front end (``solver/solver.py``).
 """
 from __future__ import annotations
 
@@ -51,6 +57,7 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.core import oneD
+from repro_torch.core.lp import NORM_EPS
 
 # Constraint counts are padded to a multiple of LANE.  The number is the
 # reference's (its TPU lane width); the port keeps it so identical padded
@@ -287,27 +294,63 @@ def rgb_plain(
 _launch_lock = threading.Lock()
 _bound = {}
 
+# The library's entry points, each for float32 (``<name>_launch_f32``) and
+# float64 (``_f64``), and their argument types: pointers and the stream
+# travel as 64-bit values.
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ENTRIES = {
+    "rgb": [_P] * 5 + [_I] * 3 + [ctypes.c_double] + [_I] * 3 + [_P],
+    "prep": [_P] * 7 + [_I] * 6 + [ctypes.c_double, _P],
+    "finish": [_P] * 5 + [_I, _P],
+}
 
-def _launcher(dtype: torch.dtype):
-    """The ctypes entry point for ``dtype`` (builds the library at first
-    use).  ``argtypes`` are set so pointers and the stream travel as
-    64-bit values."""
-    fn = _bound.get(dtype)
+
+def _launcher(name: str, dtype: torch.dtype):
+    """The ctypes entry point ``name`` (``"rgb"``, ``"prep"`` or
+    ``"finish"``) for ``dtype``; builds the library and binds every entry
+    point at first use."""
+    fn = _bound.get((name, dtype))
     if fn is not None:
         return fn
     from repro_torch.kernels import _build
     lib = _build.load("batch_lp")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    for name in ("rgb_launch_f32", "rgb_launch_f64"):
-        f = getattr(lib, name)
-        f.argtypes = [p, p, p, p, p, i, i, i, ctypes.c_double, i, i, i, p]
-        f.restype = ctypes.c_int
+    for entry, argtypes in _ENTRIES.items():
+        for suffix, dt in (("f32", torch.float32), ("f64", torch.float64)):
+            f = getattr(lib, f"{entry}_launch_{suffix}")
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+            _bound[(entry, dt)] = f
     lib.rgb_error_string.argtypes = [ctypes.c_int]
     lib.rgb_error_string.restype = ctypes.c_char_p
-    _bound[torch.float32] = lib.rgb_launch_f32
-    _bound[torch.float64] = lib.rgb_launch_f64
     _bound["error_string"] = lib.rgb_error_string
-    return _bound[dtype]
+    return _bound[(name, dtype)]
+
+
+def _check_cuda(name: str, dtype: torch.dtype, device: torch.device,
+                **tensors) -> None:
+    """What every launch of the library needs: a card, float32 or
+    float64, and each of ``tensors`` contiguous on ``device``."""
+    if device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {device}")
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: float32 or float64, got {dtype}")
+    for key, t in tensors.items():
+        if t.device != device or not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous on {device}")
+
+
+def _enqueue(name: str, dtype: torch.dtype, device: torch.device,
+             *args) -> None:
+    """Launch the entry point ``name`` for ``dtype`` with ``args`` on
+    PyTorch's current stream of ``device``, without synchronising; a
+    refused launch raises (as ``<name>_cuda``, its wrapper)."""
+    fn = _launcher(name, dtype)
+    with torch.cuda.device(device):
+        code = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if code != 0:
+        msg = _bound["error_string"](code).decode(errors="replace")
+        raise RuntimeError(f"{name}_cuda: launch refused (cuda error "
+                           f"{code}: {msg})")
 
 
 def rgb_cuda(
@@ -376,28 +419,21 @@ def _launch(L, c, m_valid, M: float, tile: int, g: LaunchGeometry):
     scripts and tests may pass the unstaged regime at a shape that would
     be staged, which gives the same bits."""
     B, _, m_pad = L.shape
-    if L.device.type != "cuda":
-        raise ValueError(f"rgb_cuda: unsupported device {L.device}")
-    for name, t in (("L", L), ("c", c), ("m_valid", m_valid)):
-        if not t.is_contiguous():
-            raise ValueError(f"rgb_cuda: {name} must be contiguous")
+    _check_cuda("rgb_cuda", L.dtype, L.device, L=L, c=c, m_valid=m_valid)
     if L.data_ptr() % 16:
         raise ValueError("rgb_cuda: L must be 16-byte aligned (bulk copies)")
     x = torch.empty((B, 2), dtype=L.dtype, device=L.device)
     feas = torch.empty((B, 1), dtype=torch.int32, device=L.device)
     if B == 0:
         return x, feas
-    fn = _launcher(L.dtype)
-    with torch.cuda.device(L.device):
-        stream = torch.cuda.current_stream(L.device).cuda_stream
-        code = fn(L.data_ptr(), c.data_ptr(), m_valid.data_ptr(),
-                  x.data_ptr(), feas.data_ptr(), B, m_pad, tile, float(M),
-                  g.warps, int(g.staged), g.smem_bytes, stream)
-    if code != 0:
-        msg = _bound["error_string"](code).decode(errors="replace")
-        raise RuntimeError(
-            f"rgb_cuda: launch refused (cuda error {code}: {msg}) for "
-            f"B={B} m_pad={m_pad} tile={tile} {L.dtype} {g}")
+    try:
+        _enqueue("rgb", L.dtype, L.device, L.data_ptr(), c.data_ptr(),
+                 m_valid.data_ptr(), x.data_ptr(), feas.data_ptr(), B,
+                 m_pad, tile, float(M), g.warps, int(g.staged),
+                 g.smem_bytes)
+    except RuntimeError as e:
+        raise RuntimeError(f"{e} for B={B} m_pad={m_pad} tile={tile} "
+                           f"{L.dtype} {g}") from None
     key = (B, m_pad, str(L.dtype).removeprefix("torch."), tile)
     with _launch_lock:
         rgb_cuda.launches += 1
@@ -409,3 +445,90 @@ def _launch(L, c, m_valid, M: float, tile: int, g: LaunchGeometry):
 # in all, and by ``(B, m_pad, dtype, tile)``.
 rgb_cuda.launches = 0
 rgb_cuda.geometries = {}
+
+
+# ---------------------------------------------------------------------------
+# The solver front end's passes around the kernel: prep and finish
+# ---------------------------------------------------------------------------
+
+
+def prep_cuda(src: torch.Tensor, b: Optional[torch.Tensor],
+              c: torch.Tensor, m_valid: torch.Tensor, *, m_pad: int,
+              b_pad: int, normalize: bool = True):
+    """Normalise, pack and pad a batch in one launch: ``(L (b_pad, 4,
+    m_pad), c (b_pad, 2), m_valid (b_pad, 1) int32)``, what ``rgb_cuda``
+    takes.
+
+    ``src`` is ``A (B, m, 2)`` with ``b (B, m)`` (the AoS layout), or the
+    packed ``L (B, 4, m)`` with ``b=None``; ``c (B, 2)`` in the same
+    dtype, ``m_valid`` ``B`` int32 counts; every tensor contiguous on one
+    card.  ``m_pad`` (a positive multiple of ``LANE``, at least ``m``) and
+    ``b_pad`` (at least ``B``) size the output.  The result equals, in
+    every bit, the eager chain the solver runs elsewhere: ``pack``
+    (AoS only), ``normalize_packed`` (when ``normalize``; the AoS
+    ``normalize_batch`` computes the same), ``pad_packed`` to ``m_pad``,
+    ``pad_packed_batch_dim`` to ``b_pad``.  That chain is this pass's plain
+    version; there is no CPU mode.  ``prep_cuda.launches`` counts
+    launches.
+    """
+    packed = b is None
+    dt, dev = src.dtype, src.device
+    extra = {} if packed else {"b": b}
+    _check_cuda("prep_cuda", dt, dev, src=src, c=c, m_valid=m_valid, **extra)
+    B = src.shape[0]
+    m = src.shape[2] if packed else src.shape[1]
+    want = (B, 4, m) if packed else (B, m, 2)
+    if (tuple(src.shape) != want or (not packed and tuple(b.shape) != (B, m))
+            or tuple(c.shape) != (B, 2) or m_valid.numel() != B
+            or (not packed and b.dtype != dt) or c.dtype != dt
+            or m_valid.dtype != torch.int32):
+        raise ValueError(
+            f"prep_cuda: want src {want}, b ({B}, {m}) and c ({B}, 2) "
+            f"{dt}, m_valid {B} int32; got src {tuple(src.shape)}, b "
+            f"{None if packed else (tuple(b.shape), b.dtype)}, c "
+            f"{tuple(c.shape)} {c.dtype}, m_valid {tuple(m_valid.shape)} "
+            f"{m_valid.dtype}")
+    if m_pad < max(m, 1) or m_pad % LANE or b_pad < B:
+        raise ValueError(f"prep_cuda: m_pad {m_pad} must be a positive "
+                         f"multiple of {LANE} >= {m}, b_pad {b_pad} >= {B}")
+    L = torch.empty((b_pad, 4, m_pad), dtype=dt, device=dev)
+    c_out = torch.empty((b_pad, 2), dtype=dt, device=dev)
+    mv_out = torch.empty((b_pad, 1), dtype=torch.int32, device=dev)
+    _enqueue("prep", dt, dev, src.data_ptr(),
+             None if packed else b.data_ptr(), c.data_ptr(),
+             m_valid.data_ptr(), L.data_ptr(), c_out.data_ptr(),
+             mv_out.data_ptr(), B, m, b_pad, m_pad, int(packed),
+             int(normalize), NORM_EPS)
+    with _launch_lock:
+        prep_cuda.launches += 1
+    return L, c_out, mv_out
+
+
+def finish_cuda(x: torch.Tensor, feas: torch.Tensor, c: torch.Tensor,
+                batch: int):
+    """The objective and the flags of the first ``batch`` problems, in one
+    launch: ``(objective (batch,), feasible (batch,) bool)`` from what
+    ``rgb_cuda`` wrote (``x (>= batch, 2)``, ``feas (>= batch, 1)``
+    int32) and ``c`` (``>= batch`` rows, ``x``'s dtype); equal in bits to
+    ``(c[:batch] * x[:batch]).sum(-1)`` and ``feas[:batch, 0].to(bool)``.
+    ``finish_cuda.launches`` counts launches."""
+    dt, dev = x.dtype, x.device
+    _check_cuda("finish_cuda", dt, dev, x=x, feas=feas, c=c)
+    if (x.ndim != 2 or x.shape[1] != 2 or tuple(c.shape) != tuple(x.shape)
+            or c.dtype != dt or feas.dtype != torch.int32
+            or feas.numel() != x.shape[0] or not 0 <= batch <= x.shape[0]):
+        raise ValueError(
+            f"finish_cuda: want x and c (n, 2) {dt}, feas n int32, batch "
+            f"<= n; got x {tuple(x.shape)}, c {tuple(c.shape)} {c.dtype}, "
+            f"feas {tuple(feas.shape)} {feas.dtype}, batch {batch}")
+    obj = torch.empty((batch,), dtype=dt, device=dev)
+    feasible = torch.empty((batch,), dtype=torch.bool, device=dev)
+    _enqueue("finish", dt, dev, x.data_ptr(), feas.data_ptr(),
+             c.data_ptr(), obj.data_ptr(), feasible.data_ptr(), batch)
+    with _launch_lock:
+        finish_cuda.launches += 1
+    return obj, feasible
+
+
+prep_cuda.launches = 0
+finish_cuda.launches = 0

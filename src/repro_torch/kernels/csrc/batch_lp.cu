@@ -84,6 +84,9 @@
 // dynamic slice instead; for valid inputs both are no-ops.)
 //
 // wgmma is not used: the kernel does no matrix product.
+//
+// The same library holds the solver front end's two passes around this
+// kernel, prep_kernel and finish_kernel: see their own note further down.
 
 #include <cuda_runtime.h>
 
@@ -506,6 +509,227 @@ int launch(const void* L, const void* c, const void* mv, void* x, void* feas,
                            smem_bytes, stream);
 }
 
+// --- The front end's passes: prep and finish --------------------------------
+//
+// These two replace no Pallas kernel.  They are the fusion XLA gives the
+// reference's jitted front end (src/repro/solver/solver.py: normalise, pack
+// and pad before rgb_pallas, the objective after it), which the port
+// otherwise runs as ~20 eager PyTorch ops, each a launch and a pass over the
+// batch.  Both are bound by bytes: prep reads 12 bytes a constraint (the AoS
+// a_x, a_y, b) and writes 16 (a column of L), with a handful of flops;
+// finish touches ~30 bytes a problem.
+//
+// prep_kernel, in one pass, from either layout as the caller gave it (the
+// AoS A (B, m, 2) and b (B, m), or the packed L_in (B, 4, m)), with c (B, 2)
+// and m_valid (B,) int32: L (b_pad, 4, m_pad) with rows (a_x, a_y, b, 0),
+// normalised; columns m..m_pad-1 and problems B..b_pad-1 neutral
+// (a = 0, b = 1; c = (1, 0), m_valid = 0), as pad_packed and
+// pad_packed_batch_dim write them; c (b_pad, 2) and m_valid (b_pad, 1).
+// The arithmetic is the eager chain's on the card, in its order, so L equals
+// its result in every bit: n = ||a|| is torch's vector_norm over the pair
+// (two rounded squares, one rounded sum, a rounded square root: the build's
+// --fmad=false keeps the sum from contracting, as torch's reduction, which
+// folds each square into its own accumulator, does not contract it either);
+// s = n < eps ? 1 : 1 / max(n, eps), the divide IEEE (where s is used,
+// max(n, eps) is n, NaN included); then a_x * s, a_y * s, b * s, and for a
+// packed input the fourth row * s too, as normalize_packed multiplies it.
+// Padding columns the input already had are normalised like any column
+// (zero norm: s = 1), as in the eager chain.
+//
+// Access: a thread takes four consecutive columns of one problem, and
+// consecutive threads consecutive column groups, so every access is
+// coalesced.  In float32 a thread loads two float4 of A and one of b (AoS)
+// or one float4 of each row (packed), and stores one float4 to each row of
+// L: 16 bytes a thread an access.  That needs the inputs 16-byte aligned
+// and a problem's stride (m * itemsize) a multiple of 16 bytes; otherwise,
+// and for the group holding the input's last columns, the thread reads
+// column by column (the scalar path) and still stores 16-byte words.  L's
+// columns are a multiple of 128, so a group never straddles two rows.
+//
+// finish_kernel: objective = (0 + c_x * x_0) + c_y * x_1, which is how
+// (c * x).sum(-1) rounds on the card (a product kernel, then a sum from
+// +0: the sign of a zero included), and feasible = feas != 0 as a bool, for
+// the first B problems.
+
+template <typename T>
+__device__ __forceinline__ void load4(const T* __restrict__ p, T v[4]);
+template <>
+__device__ __forceinline__ void load4<float>(const float* __restrict__ p,
+                                             float v[4]) {
+  const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+template <>
+__device__ __forceinline__ void load4<double>(const double* __restrict__ p,
+                                              double v[4]) {
+  const double2 q0 = __ldg(reinterpret_cast<const double2*>(p));
+  const double2 q1 = __ldg(reinterpret_cast<const double2*>(p) + 1);
+  v[0] = q0.x; v[1] = q0.y; v[2] = q1.x; v[3] = q1.y;
+}
+
+template <typename T>
+__device__ __forceinline__ void store4(T* __restrict__ p, const T v[4]);
+template <>
+__device__ __forceinline__ void store4<float>(float* __restrict__ p,
+                                              const float v[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+template <>
+__device__ __forceinline__ void store4<double>(double* __restrict__ p,
+                                               const double v[4]) {
+  reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);
+  reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
+}
+
+__device__ __forceinline__ float sqrt_rn(float v) { return __fsqrt_rn(v); }
+__device__ __forceinline__ double sqrt_rn(double v) { return __dsqrt_rn(v); }
+
+// 1 / ||a|| where the norm is real, 1 where it is below eps (padding).
+template <typename T>
+__device__ __forceinline__ T norm_scale(T ax, T ay, T eps) {
+  const T n = sqrt_rn(ax * ax + ay * ay);
+  return n < eps ? T(1) : T(1) / n;
+}
+
+constexpr int PREP_THREADS = 256;
+constexpr int FINISH_THREADS = 256;
+
+template <typename T, bool PACKED>
+__global__ void __launch_bounds__(PREP_THREADS)
+    prep_kernel(const T* __restrict__ src, const T* __restrict__ b_src,
+                const T* __restrict__ c_in, const int* __restrict__ mv_in,
+                T* __restrict__ L, T* __restrict__ c_out,
+                int* __restrict__ mv_out, int batch, int m, int b_pad,
+                int m_pad, bool normalize, bool vec, T eps) {
+  const long long groups = m_pad / 4;
+  const long long g = (long long)blockIdx.x * PREP_THREADS + threadIdx.x;
+  if (g >= (long long)b_pad * groups) return;
+  const int p = (int)(g / groups);
+  const int j = (int)(g - p * groups) * 4;
+  T r0[4], r1[4], r2[4], r3[4];
+  if (p < batch && vec && j + 4 <= m) {
+    if constexpr (PACKED) {
+      const T* s = src + (long long)p * 4 * m + j;
+      load4(s, r0);
+      load4(s + m, r1);
+      load4(s + 2LL * m, r2);
+      load4(s + 3LL * m, r3);
+    } else {
+      const long long k = (long long)p * m + j;
+      T a[8];
+      load4(src + 2 * k, a);
+      load4(src + 2 * k + 4, a + 4);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        r0[u] = a[2 * u];
+        r1[u] = a[2 * u + 1];
+        r3[u] = T(0);
+      }
+      load4(b_src + k, r2);
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int h = j + u;
+      r0[u] = T(0); r1[u] = T(0); r2[u] = T(1); r3[u] = T(0);
+      if (p < batch && h < m) {
+        if constexpr (PACKED) {
+          const T* s = src + (long long)p * 4 * m + h;
+          r0[u] = s[0];
+          r1[u] = s[m];
+          r2[u] = s[2LL * m];
+          r3[u] = s[3LL * m];
+        } else {
+          const long long k = (long long)p * m + h;
+          r0[u] = src[2 * k];
+          r1[u] = src[2 * k + 1];
+          r2[u] = b_src[k];
+        }
+      }
+    }
+  }
+  if (normalize) {
+    // A neutral column has zero norm: s = 1 leaves it as it is.
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const T s = norm_scale(r0[u], r1[u], eps);
+      r0[u] *= s;
+      r1[u] *= s;
+      r2[u] *= s;
+      if constexpr (PACKED) r3[u] *= s;
+    }
+  }
+  T* out = L + (long long)p * 4 * m_pad + j;
+  store4(out, r0);
+  store4(out + m_pad, r1);
+  store4(out + 2LL * m_pad, r2);
+  store4(out + 3LL * m_pad, r3);
+  if (j == 0) {
+    const bool real = p < batch;
+    c_out[2LL * p] = real ? c_in[2LL * p] : T(1);
+    c_out[2LL * p + 1] = real ? c_in[2LL * p + 1] : T(0);
+    mv_out[p] = real ? mv_in[p] : 0;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(FINISH_THREADS)
+    finish_kernel(const T* __restrict__ x, const int* __restrict__ feas,
+                  const T* __restrict__ c, T* __restrict__ obj,
+                  unsigned char* __restrict__ feasible, int batch) {
+  const int i = blockIdx.x * FINISH_THREADS + threadIdx.x;
+  if (i >= batch) return;
+  const T p0 = c[2LL * i] * x[2LL * i];
+  const T p1 = c[2LL * i + 1] * x[2LL * i + 1];
+  obj[i] = (T(0) + p0) + p1;
+  feasible[i] = feas[i] != 0 ? 1 : 0;
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <typename T>
+int prep(const void* src, const void* b, const void* c, const void* mv,
+         void* L, void* c_out, void* mv_out, int batch, int m, int b_pad,
+         int m_pad, int packed, int normalize, double eps, void* stream) {
+  // Every problem's c and m_valid are written by its column group 0, so an
+  // output with problems has columns.
+  if (batch < 0 || m < 0 || b_pad < batch || m_pad < m || m_pad % 4 ||
+      (b_pad > 0 && m_pad == 0) || (!packed && b == nullptr) ||
+      !aligned16(L))
+    return (int)cudaErrorInvalidValue;
+  const long long threads = (long long)b_pad * (m_pad / 4);
+  if (threads == 0) return (int)cudaSuccess;
+  const long long blocks = (threads + PREP_THREADS - 1) / PREP_THREADS;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const bool vec = aligned16(src) && (packed || aligned16(b)) &&
+                   ((long long)m * (long long)sizeof(T)) % 16 == 0;
+  auto kern = packed ? prep_kernel<T, true> : prep_kernel<T, false>;
+  kern<<<dim3((unsigned)blocks), dim3(PREP_THREADS), 0,
+         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(src), static_cast<const T*>(b),
+      static_cast<const T*>(c), static_cast<const int*>(mv),
+      static_cast<T*>(L), static_cast<T*>(c_out), static_cast<int*>(mv_out),
+      batch, m, b_pad, m_pad, normalize != 0, vec, static_cast<T>(eps));
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int finish(const void* x, const void* feas, const void* c, void* obj,
+           void* feasible, int batch, void* stream) {
+  if (batch < 0) return (int)cudaErrorInvalidValue;
+  if (batch == 0) return (int)cudaSuccess;
+  finish_kernel<T><<<dim3((unsigned)((batch + FINISH_THREADS - 1) /
+                                     FINISH_THREADS)),
+                     dim3(FINISH_THREADS), 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const int*>(feas),
+      static_cast<const T*>(c), static_cast<T*>(obj),
+      static_cast<unsigned char*>(feasible), batch);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Each function enqueues one launch
@@ -533,4 +757,43 @@ extern "C" int rgb_launch_f64(const void* L, const void* c, const void* mv,
 
 extern "C" const char* rgb_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// The front end's passes, on `stream`, with the same conventions.  prep:
+// `src` is A (batch, m, 2) with `b` (batch, m) when `packed` is 0, else
+// L_in (batch, 4, m) with `b` unused; `c` (batch, 2), `mv` (batch,) int32;
+// writes L (b_pad, 4, m_pad), c_out (b_pad, 2), mv_out (b_pad,) int32, with
+// m_pad a multiple of 4 (of 128 on the solver's path) and L 16-byte
+// aligned; normalises when `normalize` != 0.  finish: x (>= batch, 2), feas
+// (>= batch,) int32 and c (>= batch, 2) in, objective (batch,) and feasible
+// (batch,) as 0/1 bytes out.  Nothing is launched for an empty output; prep
+// refuses problems without columns (m_pad == 0 < b_pad).
+extern "C" int prep_launch_f32(const void* src, const void* b, const void* c,
+                               const void* mv, void* L, void* c_out,
+                               void* mv_out, int batch, int m, int b_pad,
+                               int m_pad, int packed, int normalize,
+                               double eps, void* stream) {
+  return prep<float>(src, b, c, mv, L, c_out, mv_out, batch, m, b_pad, m_pad,
+                     packed, normalize, eps, stream);
+}
+
+extern "C" int prep_launch_f64(const void* src, const void* b, const void* c,
+                               const void* mv, void* L, void* c_out,
+                               void* mv_out, int batch, int m, int b_pad,
+                               int m_pad, int packed, int normalize,
+                               double eps, void* stream) {
+  return prep<double>(src, b, c, mv, L, c_out, mv_out, batch, m, b_pad, m_pad,
+                      packed, normalize, eps, stream);
+}
+
+extern "C" int finish_launch_f32(const void* x, const void* feas,
+                                 const void* c, void* obj, void* feasible,
+                                 int batch, void* stream) {
+  return finish<float>(x, feas, c, obj, feasible, batch, stream);
+}
+
+extern "C" int finish_launch_f64(const void* x, const void* feas,
+                                 const void* c, void* obj, void* feasible,
+                                 int batch, void* stream) {
+  return finish<double>(x, feas, c, obj, feasible, batch, stream);
 }

@@ -30,6 +30,14 @@ shape ``shuffle`` draws from, so for ``shuffle=True`` specs the identity
 needs matching ``m``; a padded batch still agrees on the optimum to the
 usual tolerance, just not bit-for-bit.)
 
+On the card, an unshuffled kernel-backend solve runs its front end as two
+hand-written launches around the kernel instead (``_solve_fused``):
+``prep_cuda`` normalises, packs and pads either layout in one pass, and
+``finish_cuda`` writes the objective and the flags.  They equal the eager
+chain in every bit; every other call (the CPU, ``meta``, ``interpret``,
+the dense backends, a shuffled spec) runs that chain, which is their plain
+version.
+
 Launch geometry left unset on the spec (``tile``/``chunk`` ``None``) is
 pinned here per input shape via
 :meth:`~repro_torch.solver.spec.SolverSpec.resolve_for_shape` — explicit
@@ -48,9 +56,9 @@ import torch
 
 from repro_torch.core.lp import (LPBatch, LPSolution, _objective,
                                  make_batch, normalize_batch, shuffle_batch)
-from repro_torch.core.packed import (PackedLPBatch, normalize_packed, pack,
-                                     pad_packed, pad_packed_batch_dim,
-                                     shuffle_packed)
+from repro_torch.core.packed import (PackedLPBatch, count_pack,
+                                     normalize_packed, pack, pad_packed,
+                                     pad_packed_batch_dim, shuffle_packed)
 from repro_torch.core.seidel import (solve_naive, solve_naive_packed,
                                      solve_rgb, solve_rgb_packed)
 from repro_torch.device import DeviceLike, as_device
@@ -77,8 +85,9 @@ def solve_with_spec(spec: SolverSpec, batch: AnyLPBatch,
     tracer records (while a profiler records), the call is a ``solve``
     span with one child a stage (``solve.cast``, ``.normalize``, ``.shuffle``,
     ``.pack``, ``.pad``, ``.launch``, ``.objective``, as far as the
-    backend takes them); under a flush they go to the flush's tracer,
-    under its ``flush.dispatch`` span.
+    backend takes them; the fused front end records its ``prep`` launch
+    as ``.normalize`` and its ``finish`` as ``.objective``); under a flush
+    they go to the flush's tracer, under its ``flush.dispatch`` span.
     """
     top = open_span("solve")
     if top is None:
@@ -103,6 +112,8 @@ def _solve(spec: SolverSpec, batch: AnyLPBatch,
         top.attrs.update(B=batch.batch, m_pad=m, backend=spec.backend,
                          tile=spec.tile)
     st = stage(top, None, "solve.cast")
+    if _takes_fused(spec, device, generator, batch.batch, m):
+        return _solve_fused(spec, batch, is_packed, dt, top, st)
     if is_packed:
         return _solve_packed(spec, batch, dt, generator, top, st)
     # Cast each tensor (``to`` is the identity when already dt): A alone
@@ -198,6 +209,60 @@ def _solve_kernel(spec: SolverSpec, pb: PackedLPBatch,
     )
     stage(top, st, None)
     return sol
+
+
+def _takes_fused(spec: SolverSpec, device: torch.device,
+                 generator: Optional[torch.Generator], batch: int,
+                 m: int) -> bool:
+    """Whether a solve takes the fused front end: the kernel on the card,
+    no shuffle, and something to solve.  Every other call (the CPU,
+    ``meta``, ``interpret``, the dense backends, a shuffled spec) runs the
+    eager chain."""
+    return (spec.backend == "kernel" and not spec.interpret
+            and generator is None and device.type == "cuda"
+            and batch > 0 and m > 0)
+
+
+def _dense(t: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """``t`` in ``dt`` and contiguous: ``t`` itself when it already is."""
+    return t.to(dt).contiguous()
+
+
+def _solve_fused(spec: SolverSpec, batch: AnyLPBatch, is_packed: bool,
+                 dt: torch.dtype, top: Optional[Span],
+                 st: Optional[Span]) -> LPSolution:
+    """The kernel backend's front end on the card: three launches.
+    ``prep_cuda`` normalises, packs and pads either layout into the
+    kernel's arrays (stage ``solve.normalize``), ``rgb_cuda`` solves
+    (``solve.launch``), ``finish_cuda`` writes the objective and the flags
+    (``solve.objective``).  Equal in bits to the eager chain; an AoS batch
+    counts as one pack."""
+    from repro_torch.kernels.batch_lp import (LANE, _pick_tile,
+                                              finish_cuda, prep_cuda,
+                                              rgb_cuda)
+
+    if is_packed:
+        src, b, m = _dense(batch.L, dt), None, batch.m_pad
+    else:
+        src, b, m = _dense(batch.A, dt), _dense(batch.b, dt), batch.m
+        count_pack()
+    c = _dense(batch.c, dt)
+    mv = _dense(batch.m_valid, torch.int32)
+    B = batch.batch
+    tile = spec.tile or _pick_tile(B)
+    m_pad = -(-m // LANE) * LANE
+    if top is not None:
+        top.attrs.update(m_pad=m_pad, tile=tile)
+    st = stage(top, st, "solve.normalize")
+    L, c, mv = prep_cuda(src, b, c, mv, m_pad=m_pad,
+                         b_pad=-(-B // tile) * tile,
+                         normalize=spec.normalize)
+    st = stage(top, st, "solve.launch")
+    x, feas = rgb_cuda(L, c, mv, M=spec.M, tile=tile, chunk=spec.chunk or 0)
+    st = stage(top, st, "solve.objective")
+    objective, feasible = finish_cuda(x, feas, c, B)
+    stage(top, st, None)
+    return LPSolution(x=x[:B], feasible=feasible, objective=objective)
 
 
 class Solver:

@@ -241,6 +241,10 @@ def test_pack_call_counter():
     assert tc.pack_call_count() == n0 + 1
     tlp.pack()
     assert tc.pack_call_count() == n0 + 2
+    # the card's fused front end counts its AoS conversion the same way
+    from repro_torch.core.packed import count_pack
+    count_pack()
+    assert tc.pack_call_count() == n0 + 3
 
 
 @pytest.mark.parametrize("backend", ["naive", "rgb", "rgb-chunked"])

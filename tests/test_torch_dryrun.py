@@ -45,7 +45,8 @@ import torch
 
 from repro_torch import dist as D
 from repro_torch.configs import ARCHS, SHAPES, InputShape, smoke_config
-from repro_torch.kernels.batch_lp import rgb_cuda, rgb_flops, rgb_plain
+from repro_torch.kernels.batch_lp import (finish_cuda, prep_cuda, rgb_cuda,
+                                          rgb_flops, rgb_plain)
 from repro_torch.launch import dryrun, steps
 from repro_torch.launch.mesh import (HostMesh, RecordingMesh,
                                      make_production_mesh)
@@ -225,6 +226,7 @@ def test_rgb_op_on_meta_gives_shapes_and_is_counted():
 def test_lp_clip_takes_the_kernel_on_meta_and_count_call_sees_it():
     cfg = _smoke("qwen2-0.5b")
     counts = {}
+    fronts = (prep_cuda.launches, finish_cuda.launches)
     for clip in (False, True):
         opt = AdamW()
         prog = steps.make_train_step(cfg, HostMesh(torch.device("cpu")), opt,
@@ -242,6 +244,8 @@ def test_lp_clip_takes_the_kernel_on_meta_and_count_call_sees_it():
     assert counts[True].flops - counts[False].flops == int(
         rgb_flops(b_pad, 128))
     assert counts[True].bytes - counts[False].bytes > b_pad * 4 * 128 * 4
+    # on meta the solve runs the eager front end: no prep, no finish
+    assert (prep_cuda.launches, finish_cuda.launches) == fronts
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,8 @@ import pytest
 import torch
 
 from repro_torch.core import (adversarial_lp, concat_batches, infeasible_lp,
-                              normalize_packed, pack_call_count, pad_packed,
+                              make_batch, normalize_batch, normalize_packed,
+                              pack, pack_call_count, pad_packed,
                               pad_packed_batch_dim, ragged_feasible_lp,
                               random_feasible_lp)
 from repro_torch.kernels import batch_lp
@@ -34,7 +35,7 @@ from repro_torch.kernels.batch_lp import (LANE, launch_geometry,
                                           max_staged_m_pad, rgb_cuda,
                                           rgb_plain)
 from repro_torch.serve_lp import BatchScheduler
-from repro_torch.solver import SolverSpec
+from repro_torch.solver import SolverSpec, solve_with_spec
 
 pytestmark = pytest.mark.gpu
 
@@ -204,7 +205,7 @@ def test_refused_launch_is_reported(card):
     """A block of 64 warps (2048 threads) is more than the kernel takes: the
     C entry point returns the error code instead of running nothing
     silently, and the library names it."""
-    fn = batch_lp._launcher(torch.float32)
+    fn = batch_lp._launcher("rgb", torch.float32)
     L, c, mv = _mixed_packed(card, torch.float32, batch=8, m=16)
     x = torch.empty((8, 2), device=card)
     f = torch.empty((8, 1), dtype=torch.int32, device=card)
@@ -219,10 +220,144 @@ def test_refused_launch_is_reported(card):
               f.data_ptr(), 8, L.shape[2], 8, M, g.warps, 1,
               g.smem_bytes - 8, stream)
     assert code != 0
+    # through the wrapper's enqueue it raises, naming the launch
+    with pytest.raises(RuntimeError, match="rgb_cuda: launch refused .* "
+                       "for B=8"):
+        batch_lp._launch(L, c, mv, M, 8, g._replace(warps=64))
     # the card is still usable afterwards
     x2, f2 = rgb_cuda(L, c, mv, M=M, tile=8)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(x2).all())
+
+
+# -- the solver front end's two passes: prep and finish ----------------------
+
+def _front_batch(device, dtype, B=37, m=201):
+    """An AoS batch for every branch of ``prep``: ragged ``m_valid`` (0
+    included), zero-norm rows, rows whose norm lies at and around eps
+    (1e-30: in float32 their squares underflow), normals and offsets from
+    1e-20 to 1e20 (squares that overflow in float32)."""
+    g = torch.Generator().manual_seed(m)
+    u = lambda *shape: torch.empty(shape, dtype=torch.float64).uniform_(
+        -20, 20, generator=g)
+    A = torch.randn((B, m, 2), generator=g, dtype=torch.float64) \
+        * 10.0 ** u(B, m, 1)
+    b = torch.randn((B, m), generator=g, dtype=torch.float64) * 10.0 ** u(B, m)
+    A[:, ::7] = 0.0
+    theta = torch.rand((B, m), generator=g, dtype=torch.float64) * 2 * np.pi
+    near = 1e-30 * (1.0 + torch.randint(-2, 3, (B, m), generator=g)
+                     .double() * 1e-15)
+    ring = torch.stack([torch.cos(theta), torch.sin(theta)], -1) \
+        * near[..., None]
+    A[:, 3::11] = ring[:, 3::11]
+    A[:, 5::11, 0], A[:, 5::11, 1] = 1e-30, 0.0
+    mv = torch.randint(0, m + 1, (B,), generator=g, dtype=torch.int32)
+    mv[:3] = torch.tensor([0, m, 1], dtype=torch.int32)
+    c = torch.randn((B, 2), generator=g, dtype=torch.float64)
+    return make_batch(A.to(dtype), b.to(dtype), c.to(dtype), mv, device=device)
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose data starts 4 bytes off 16."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
+
+
+def _eager_prep(lp, packed: bool, m_pad: int, b_pad: int, normalize: bool):
+    """The solver's eager front end for each layout: normalise, pack, pad."""
+    if packed:
+        pb = normalize_packed(lp) if normalize else lp
+    else:
+        pb = pack(normalize_batch(lp) if normalize else lp)
+    pb = pad_packed_batch_dim(pad_packed(pb, m_pad), b_pad)
+    return pb.L, pb.c, pb.m_valid.to(torch.int32)
+
+
+@pytest.mark.parametrize("m", [200, 201, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("layout", ["aos", "packed"])
+def test_prep_equals_the_eager_chain_in_bits(card, layout, dtype, m):
+    """``prep_cuda``'s L, c and m_valid against the eager chain, bit for
+    bit: the 16-byte path (m 200, 256; packed with 4 neutral columns more),
+    the column path (m 201, and any input not 16-byte aligned), B = 37
+    padded to the tile, normalised or not; for AoS also against
+    pack-then-normalize_packed."""
+    lp = _front_batch(card, dtype, m=m)
+    src = lp.pack(m + 4) if layout == "packed" else lp
+    m_pad, b_pad = -(-(m + 4) // LANE) * LANE, 40
+    args = ((src.L, None) if layout == "packed" else (src.A, src.b))
+    for normalize in (True, False):
+        want = _eager_prep(src, layout == "packed", m_pad, b_pad, normalize)
+        for a in (args, tuple(None if t is None else _misaligned(t)
+                              for t in args)):
+            n0 = batch_lp.prep_cuda.launches
+            got = batch_lp.prep_cuda(*a, src.c, src.m_valid, m_pad=m_pad,
+                                     b_pad=b_pad, normalize=normalize)
+            assert batch_lp.prep_cuda.launches == n0 + 1
+            for g, w in zip(got, want):
+                assert g.shape == w.shape and g.dtype == w.dtype
+                assert torch.equal(_bits(g), _bits(w))
+    if layout == "aos":
+        pb = pad_packed_batch_dim(pad_packed(normalize_packed(pack(lp)),
+                                             m_pad), b_pad)
+        got = batch_lp.prep_cuda(lp.A, lp.b, lp.c, lp.m_valid, m_pad=m_pad,
+                                 b_pad=b_pad)
+        assert torch.equal(_bits(got[0]), _bits(pb.L))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_solve_equals_the_eager_front_end_in_bits(card, dtype,
+                                                        monkeypatch):
+    """A whole solve with prep and finish against the same solve through
+    the eager chain: x, feasible and objective equal bit for bit, AoS and
+    packed alike; one prep, one rgb and one finish launch a call; an AoS
+    call counts one pack, a packed one none."""
+    from repro_torch.solver import solver as solver_mod
+    g = torch.Generator().manual_seed(9)
+    lp = concat_batches([
+        random_feasible_lp(g, 24, 150, dtype=dtype, device=card),
+        ragged_feasible_lp(g, 24, 150, dtype=dtype, device=card),
+        infeasible_lp(9, 150, dtype=dtype, device=card),
+        adversarial_lp(8, 150, dtype=dtype, device=card)])
+    extreme = _front_batch(card, dtype, B=21, m=150)
+    spec = SolverSpec(backend="kernel", dtype=str(dtype)[6:])
+    counts = lambda: (batch_lp.prep_cuda.launches, rgb_cuda.launches,
+                      batch_lp.finish_cuda.launches, pack_call_count())
+    for batch in (lp, extreme):
+        packed = batch.pack()
+        n0 = counts()
+        aos = solve_with_spec(spec, batch)
+        assert counts() == tuple(v + 1 for v in n0)
+        soa = solve_with_spec(spec, packed)
+        assert counts() == (n0[0] + 2, n0[1] + 2, n0[2] + 2, n0[3] + 1)
+        with monkeypatch.context() as mp:
+            mp.setattr(solver_mod, "_takes_fused", lambda *a: False)
+            eager = solve_with_spec(spec, batch)
+        assert counts()[0] == n0[0] + 2 and counts()[2] == n0[2] + 2
+        for sol in (aos, soa):
+            assert sol.feasible.dtype == torch.bool
+            assert sol.x.shape == eager.x.shape
+            assert torch.equal(_bits(sol.x), _bits(eager.x))
+            assert torch.equal(sol.feasible, eager.feasible)
+            assert torch.equal(_bits(sol.objective), _bits(eager.objective))
+
+
+def test_finish_writes_the_eager_objective_in_bits(card):
+    """``finish_cuda`` against ``(c * x).sum(-1)`` and ``feas != 0`` on
+    values that round apart, signed zeros included."""
+    g = torch.Generator().manual_seed(3)
+    for dt in (torch.float32, torch.float64):
+        x = (torch.randn((1003, 2), generator=g, dtype=torch.float64)
+             * 10.0 ** torch.randint(-30, 30, (1003, 2), generator=g))
+        x[:8] = torch.tensor([[0.0, -0.0], [-0.0, -0.0]] * 4)
+        c = torch.randn((1003, 2), generator=g, dtype=torch.float64)
+        c[:4] = -c[:4].abs()
+        x, c = x.to(dt).to(card), c.to(dt).to(card)
+        feas = torch.randint(-2, 3, (1003, 1), generator=g,
+                             dtype=torch.int32).to(card)
+        obj, ok = batch_lp.finish_cuda(x, feas, c, 1000)
+        assert torch.equal(_bits(obj), _bits((c[:1000] * x[:1000]).sum(-1)))
+        assert torch.equal(ok, feas[:1000, 0].to(torch.bool))
 
 
 def test_solver_on_the_card_goes_through_the_kernel(card):
@@ -274,6 +409,7 @@ def test_scheduler_on_the_card_is_bit_identical_to_direct(card):
         reqs.append((A, b, np.array([1.0, 0.5], np.float32)))
     spec = SolverSpec(backend="kernel")
     n0, p0 = rgb_cuda.launches, pack_call_count()
+    q0 = batch_lp.prep_cuda.launches
     with BatchScheduler(spec, max_batch=16, max_wait_s=0.002) as sched:
         assert sched.buffers.pinned and sched.n_devices >= 1
         futs = [sched.submit(*r) for r in reqs]
@@ -281,6 +417,7 @@ def test_scheduler_on_the_card_is_bit_identical_to_direct(card):
         sched.drain()
         snap = sched.metrics.snapshot()
     assert rgb_cuda.launches - n0 == snap["launches_total"] > 0
+    assert batch_lp.prep_cuda.launches - q0 == snap["launches_total"]
     assert pack_call_count() == p0 and snap["errors"] == {}
     solver = spec.build()
     for (A, b, c), r in zip(reqs, results):

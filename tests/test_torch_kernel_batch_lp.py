@@ -20,7 +20,8 @@ from repro.kernels.batch_lp import rgb_pallas
 from repro_torch.kernels import ops as tops, ref as tref
 from repro_torch.kernels.batch_lp import (DEFAULT_TILE, LANE, SMEM_PER_BLOCK,
                                           WARPS_PER_CTA, _pick_tile,
-                                          launch_geometry, max_staged_m_pad,
+                                          finish_cuda, launch_geometry,
+                                          max_staged_m_pad, prep_cuda,
                                           region_bytes, rgb_cuda, rgb_plain)
 from repro_torch.core import normalize_batch, pack, pad_packed_batch_dim
 from _torch_compat import CPU, OBJ_TOL, X_TOL, to_torch_batch
@@ -175,6 +176,25 @@ def test_wrapper_runs_plain_only_for_cpu_tensors():
     assert f.dtype == torch.int32 and f.shape == (48, 1)
     assert rgb_cuda.launches == n0
     assert isinstance(rgb_cuda.launches, int)
+
+
+@pytest.mark.parametrize("which", ["prep-aos", "prep-packed", "finish"])
+def test_front_end_passes_refuse_cpu_tensors(which):
+    """``prep_cuda`` and ``finish_cuda`` have no CPU mode (their plain
+    version is the solver's eager chain): on CPU tensors they raise before
+    building or launching anything."""
+    L, c, mv = _torch_inputs()
+    lp = to_torch_batch(rc.random_feasible_lp(jax.random.key(0), 8, 20))
+    n0 = (prep_cuda.launches, finish_cuda.launches)
+    with pytest.raises(ValueError, match="unsupported device cpu"):
+        if which == "prep-aos":
+            prep_cuda(lp.A, lp.b, lp.c, lp.m_valid, m_pad=LANE, b_pad=8)
+        elif which == "prep-packed":
+            prep_cuda(L, None, c, mv, m_pad=L.shape[2], b_pad=L.shape[0])
+        else:
+            finish_cuda(torch.zeros((8, 2)), torch.zeros((8, 1), dtype=
+                        torch.int32), torch.zeros((8, 2)), 8)
+    assert (prep_cuda.launches, finish_cuda.launches) == n0
 
 
 def test_plain_pad_problems_and_clamped_m_valid():

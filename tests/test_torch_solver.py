@@ -24,7 +24,8 @@ import repro_torch.core as tc
 import repro_torch.solver as ts
 from repro_torch.device import (as_device, card_info, default_device,
                                 default_devices)
-from repro_torch.kernels.batch_lp import DEFAULT_TILE, rgb_cuda
+from repro_torch.kernels.batch_lp import (DEFAULT_TILE, finish_cuda,
+                                          prep_cuda, rgb_cuda)
 from repro_torch.tune import (TableEntry, TableKey, TuningTable,
                               active_table, bucket_pow2, default_table,
                               device_platform, normalize_device_kind,
@@ -285,6 +286,7 @@ def test_auto_on_the_cpu_is_rgb_and_kernel_is_plain_there():
     kern = ts.SolverSpec(backend="kernel").build(device="cpu")
     assert kern.spec.interpret is True
     n0 = rgb_cuda.launches
+    fronts = (prep_cuda.launches, finish_cuda.launches)
     k = kern.solve(tlp)
     assert rgb_cuda.launches == n0
     assert torch.equal(k.feasible, rgb.feasible)
@@ -296,6 +298,33 @@ def test_auto_on_the_cpu_is_rgb_and_kernel_is_plain_there():
     card = ts.SolverSpec(backend="kernel", interpret=False)
     k2 = ts.solve_with_spec(card, tlp)
     assert rgb_cuda.launches == n0 and torch.equal(k2.x, k.x)
+    # neither takes the card's fused front end: no prep, no finish
+    assert (prep_cuda.launches, finish_cuda.launches) == fronts
+
+
+@pytest.mark.parametrize("case,fused", [
+    (dict(), True),
+    (dict(backend="rgb"), False),
+    (dict(backend="naive"), False),
+    (dict(backend="pdhg"), False),
+    (dict(interpret=True), False),
+    (dict(device="cpu"), False),
+    (dict(device="meta"), False),
+    (dict(shuffled=True), False),
+    (dict(batch=0), False),
+    (dict(m=0), False),
+])
+def test_only_the_kernel_on_the_card_takes_the_fused_front_end(case, fused):
+    """The fused front end (prep, kernel, finish) is chosen from what the
+    solve can see alone: the kernel backend, not ``interpret``, tensors on
+    the card, no shuffle generator, something to solve.  Every other call
+    runs the eager chain."""
+    from repro_torch.solver.solver import _takes_fused
+    spec = ts.SolverSpec(backend=case.get("backend", "kernel"),
+                         interpret=case.get("interpret", False))
+    gen = torch.Generator() if case.get("shuffled") else None
+    assert _takes_fused(spec, torch.device(case.get("device", "cuda")), gen,
+                        case.get("batch", 16), case.get("m", 8)) is fused
 
 
 def test_solver_bookkeeping_and_shared_instances():
