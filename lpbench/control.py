@@ -8,10 +8,11 @@ For each seed, in one process on the card:
 * ``--program S``: the cell's own loop for ``S`` seconds, as a run drives it,
   and the numbers its answers read against the reference (the lower
   readings);
-* ``--control``: the control, the reference itself computed in bfloat16
-  (the precision below the configuration's float32) put in the program's
-  place, on the same inputs a run makes and as many answers as a run
-  compares, read the same way (the upper readings).
+* ``--control``: the control, the reference itself computed one precision
+  below the configuration's (:data:`BELOW`: float32 for float64, bfloat16
+  for float32) put in the program's place, on the same inputs a run makes
+  and as many answers as a run compares, read the same way (the upper
+  readings).
 
 Prints one JSON line per seed and side.  The benchmark's own runs do not run
 this.  Needs a card, as a run does.
@@ -25,24 +26,28 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+# The precision one step below each configuration's ``dtype``.
+BELOW = {"float64": "float32", "float32": "bfloat16"}
 
 
 def control_tally(cell, seed: int, device):
-    """The bfloat16 reference in the program's place, judged as a run: on
-    the batches a batch mix checks, or on a serving mix's whole pool."""
+    """The reference one precision below the configuration's in the
+    program's place, judged as a run: on the batches a batch mix checks, or
+    on a serving mix's whole pool."""
     import torch
 
     from lpbench import judge, loadgen
 
     cfg, mix = cell.config, cell.traffic
     M = float(cfg["M"])
+    low_dt = getattr(torch, BELOW[cfg["dtype"]])
     ref_mod = cell.reference
     tally = judge.Tally(ref_mod)
     if "batch" in mix:
         inputs = loadgen.batch_inputs(cfg, mix, seed, device, cell.problem)
         n = min(int(mix["check_calls"]), len(inputs))
         for A, b, c, mv in inputs[:n]:
-            low = ref_mod.solve(A, b, c, mv, M=M, dtype=torch.bfloat16)
+            low = ref_mod.solve(A, b, c, mv, M=M, dtype=low_dt)
             ref = tally.classify(A, b, c, mv, cfg)
             tally.add(ref, A, b, c, mv, low["x"].float(), low["feasible"],
                       low["objective"].float(), M)
@@ -53,7 +58,7 @@ def control_tally(cell, seed: int, device):
         b = torch.from_numpy(pool.b[g]).to(device)
         c = torch.from_numpy(pool.c[g]).to(device)
         mv = torch.full((len(A),), m, dtype=torch.int32, device=device)
-        low = ref_mod.solve(A, b, c, mv, M=M, dtype=torch.bfloat16)
+        low = ref_mod.solve(A, b, c, mv, M=M, dtype=low_dt)
         ref = tally.classify(A, b, c, mv, cfg)
         tally.add(ref, A, b, c, mv, low["x"].float(), low["feasible"],
                   low["objective"].float(), M)
@@ -99,7 +104,7 @@ def main(argv=None, *, device=None, root=None) -> int:
                 "cell": cell.name, "seed": seed, "side": side,
                 "failed": failed, "compared": tally.compared,
                 "wrong": tally.wrong, "obj_gap": tally.obj_gap,
-                "x_viol": tally.x_viol,
+                "x_viol": tally.x_viol, "row_viol": tally.row_viol,
                 "seconds": time.perf_counter() - t}), flush=True)
     return 0
 

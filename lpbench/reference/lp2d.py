@@ -20,13 +20,14 @@ infeasible, the edge of the feasible interval between the two.  Every
 constraint is scaled to a unit normal first, so a slack is a distance.
 
 Plain PyTorch on whatever device the tensors lie, in blocks of problems so
-that it fits; float64 unless asked otherwise (the control asks for
-bfloat16).  It imports nothing of the program.
+that it fits (by default about 2^22 rows a block, and 2,048 problems or
+more); float64 unless asked otherwise (the control asks for the precision
+below the configuration's).  It imports nothing of the program.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -35,6 +36,15 @@ PARALLEL = 1e-12
 # Bisection steps: enough for float64 to stop moving on an interval of
 # 8 M = 80,000.
 STEPS = 96
+# Rows (constraints and the box) a block holds by default.  Each problem is
+# solved alone, so the block changes only how many launches a solve takes.
+ROWS = 2 ** 22
+
+
+def _block(block, m: int) -> int:
+    """``block``, or the default number of problems a block holds at
+    ``m`` constraints."""
+    return int(block) if block else max(2048, ROWS // (m + 4))
 
 
 def _rows(A, b, mv, M, dt):
@@ -139,13 +149,14 @@ def _solve_block(A, b, c, mv, M: float, slack: float, dt) -> Dict:
 
 
 def solve(A, b, c, m_valid, *, M: float, slack: float = 0.0,
-          dtype=torch.float64, block: int = 2048) -> Dict:
+          dtype=torch.float64, block: Optional[int] = None) -> Dict:
     """Solve every problem of ``A (n, m, 2)``, ``b (n, m)``, ``c (n, 2)``,
     ``m_valid (n,)`` with each constraint loosened by ``slack`` (a distance,
     after scaling to unit normals; negative tightens).  Returns
     ``feasible (n,)``, ``x (n, 2)`` and ``objective (n,)`` in ``dtype``
     (``x`` and ``objective`` are meaningless where infeasible)."""
     n = A.shape[0]
+    block = _block(block, A.shape[1])
     outs = [_solve_block(A[i:i + block], b[i:i + block], c[i:i + block],
                          m_valid[i:i + block], M, slack, dtype)
             for i in range(0, n, block)]
@@ -158,7 +169,7 @@ def solve(A, b, c, m_valid, *, M: float, slack: float = 0.0,
 
 
 def classify(A, b, c, m_valid, *, M: float, band: float, slacks=(),
-             block: int = 2048) -> Dict:
+             feasibility: float = 0.0, block: Optional[int] = None) -> Dict:
     """What an answer to each problem may say, in float64.
 
     ``sure_feasible``: feasible with every constraint tightened by
@@ -167,7 +178,10 @@ def classify(A, b, c, m_valid, *, M: float, band: float, slacks=(),
     ``band``, as a degenerate one is after rounding) either flag is right.
     ``objective`` is the optimum of the problem as given, or, where that is
     empty, of the problem loosened by the first of ``slacks`` (then
-    ``band``) at which it is not."""
+    ``band``) at which it is not.  ``objective_hi`` is the most a point
+    within ``feasibility`` of every constraint can reach: the optimum of the
+    problem with each constraint loosened by it (``objective`` where
+    ``feasibility`` is 0, or where that problem is empty too)."""
     exact = solve(A, b, c, m_valid, M=M, slack=0.0, block=block)
     tight = solve(A, b, c, m_valid, M=M, slack=-band, block=block)
     loose = solve(A, b, c, m_valid, M=M, slack=band, block=block)
@@ -182,25 +196,35 @@ def classify(A, b, c, m_valid, *, M: float, band: float, slacks=(),
         hit = part["feasible"]
         objective[todo[hit]] = part["objective"][hit]
         todo = todo[~hit]
+    objective_hi = objective
+    if feasibility > 0:
+        wide = solve(A, b, c, m_valid, M=M, slack=feasibility, block=block)
+        objective_hi = torch.where(
+            wide["feasible"], torch.maximum(objective, wide["objective"]),
+            objective)
     return {
         "sure_feasible": tight["feasible"],
         "sure_infeasible": ~loose["feasible"],
         "objective": objective,
+        "objective_hi": objective_hi,
     }
 
 
-def violation(A, b, m_valid, x, *, M: float, block: int = 2048):
+def violation(A, b, m_valid, x, *, M: float, relative: bool = True,
+              block: Optional[int] = None):
     """Largest violation of ``x (n, 2)`` over each problem's unit-normal
-    constraints and its box, as a share of ``max(1, |x|_inf)``, in
-    float64 (n,)."""
+    constraints and its box, in float64 (n,): as a share of
+    ``max(1, |x|_inf)``, or with ``relative`` False the distance itself."""
     out = []
+    block = _block(block, A.shape[1])
     for i in range(0, A.shape[0], block):
         ax, ay, r, keep, _ = _rows(A[i:i + block], b[i:i + block],
                                    m_valid[i:i + block], M, torch.float64)
         xb = x[i:i + block].to(torch.float64).to(ax.device)
         lhs = ax * xb[:, 0:1] + ay * xb[:, 1:2] - r
         worst = torch.where(keep, lhs, -math.inf).amax(dim=1)
-        out.append(worst / torch.clamp(xb.abs().amax(dim=1), min=1.0))
+        out.append(worst / torch.clamp(xb.abs().amax(dim=1), min=1.0)
+                   if relative else worst)
     if not out:
         return torch.zeros(0, dtype=torch.float64, device=A.device)
     return torch.cat(out)

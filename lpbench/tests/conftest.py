@@ -19,11 +19,14 @@ for p in (str(ROOT / "src"), str(ROOT)):
 # The cuts: sizes only; every loop, mix and limit is the real one.
 SMALL = {
     "traffic/b16384.json": {"batch": 32, "check_calls": 2, "trace_calls": 3},
+    "traffic/b2048.json": {"batch": 32, "check_calls": 2, "trace_calls": 3},
+    "traffic/b131072.json": {"batch": 32, "check_calls": 2, "trace_calls": 3},
     "traffic/open.json": {"rate": 150.0, "pool": 64, "trace_seconds": 0.3},
     "traffic/closed256.json": {"outstanding": 16, "pool": 64,
                                "capacity": 20000, "trace_seconds": 0.3},
     "configs/servemix.json": {"sizes": [8, 16, 32, 64]},
     "configs/fig3-m256.json": {"m": 24},
+    "configs/fig3-m2048-f64.json": {"m": 24},
 }
 
 

@@ -14,6 +14,19 @@ def test_kernel_bytes_fig3_float32():
         12 * B * m + 24 * B == 50_724_864
 
 
+@pytest.mark.parametrize("B,m,dtype,nbytes", [
+    # fig3-m2048-f64.b2048: 3 x 8 bytes a constraint; c (16), m_valid (4),
+    # x (16) and flag (4) a problem
+    (2048, 2048, "float64", 24 * 2048 * 2048 + 40 * 2048),
+    # fig4-m64.b131072: the 64 constraints held, not the 128 padded to
+    (131072, 64, "float32", 12 * 131072 * 64 + 24 * 131072),
+])
+def test_kernel_bytes_of_the_other_batch_cells(B, m, dtype, nbytes):
+    assert peaks.kernel_bytes(B, B * m, dtype) == nbytes
+    assert peaks.solve_bytes(B, B * m, dtype) == \
+        nbytes + B * peaks.ITEMSIZE[dtype]
+
+
 def test_solve_bytes_adds_the_objective():
     assert peaks.solve_bytes(128, 128 * 256, "float32") == \
         12 * 128 * 256 + 24 * 128 + 4 * 128

@@ -93,6 +93,30 @@ def test_violation_of_a_point():
     x = torch.tensor([[2 * M, 0.0]], dtype=torch.float64)
     assert float(lp2d.violation(A, b, mv, x, M=M)[0]) == pytest.approx(
         (2 * M - 1) / (2 * M))
+    assert float(lp2d.violation(A, b, mv, x, M=M, relative=False)[0]) == \
+        pytest.approx(2 * M - 1)
+
+
+@pytest.mark.parametrize("off,ok", [(0.9e-5, True), (1.2e-5, False)])
+def test_row_viol_holds_a_point_to_the_tolerance_as_a_distance(off, ok):
+    # a point at |x| = 100, `off` outside the row x <= 100, at the optimum
+    # y = 0: as a share of |x| it lies 100 times closer, inside 1e-5 either
+    # way, and its objective is exact, so row_viol alone decides
+    from lpbench import judge
+    A, b, c, mv = _batch([([(1, 0, 100), (0, 1, 0)], (0, 1))])
+    x = torch.tensor([[100 + off, 0.0]], dtype=torch.float64)
+    t = judge.Tally(lp2d)
+    ref = t.classify(A, b, c, mv, {"M": M, "tolerance": {
+        "band": 1e-3, "slacks": [], "feasibility": 1e-5}})
+    t.add(ref, A, b, c, mv, x, torch.ones(1, dtype=torch.bool),
+          torch.tensor([0.0], dtype=torch.float64), M)
+    assert t.obj_gap == 0
+    assert t.row_viol == pytest.approx(off, rel=1e-9)
+    assert t.x_viol == pytest.approx(off / (100 + off), rel=1e-9)
+    limits = {"failed": 0, "wrong": 0, "obj_gap": 1e-9, "row_viol": 1.0001e-5}
+    correct, checks = judge.verdict(t, 0, limits)
+    assert correct is ok, checks
+    assert set(checks) == set(limits)
 
 
 def test_random_problems_optimal_and_feasible():
@@ -117,3 +141,46 @@ def test_bfloat16_runs():
     A, b, c, mv = _batch([(r, c) for r, c, _, _ in CASES])
     out = lp2d.solve(A, b, c, mv, M=M, dtype=torch.bfloat16)
     assert out["x"].dtype == torch.bfloat16
+
+
+def test_the_default_block_leaves_every_answer_as_it_was():
+    g = torch.Generator().manual_seed(4)
+    from lpbench.reference import generators
+    A, b, c = generators.random_feasible_lp(g, 40, 12, dtype=torch.float64)
+    mv = torch.full((40,), 12, dtype=torch.int32)
+    whole = lp2d.solve(A, b, c, mv, M=M)
+    parts = lp2d.solve(A, b, c, mv, M=M, block=7)
+    for k in whole:
+        assert torch.equal(whole[k], parts[k]), k
+    assert lp2d._block(None, 64) > lp2d._block(None, 2048) == 2048
+    assert lp2d._block(5, 64) == 5
+
+
+def test_objective_within_the_feasibility_tolerance():
+    # the unit square's corner (1, 1), and a third row x + y <= 2 - 4e-6
+    # that it misses by 2.8e-6 along the row's unit normal
+    rows = [(1, 0, 1), (0, 1, 1), (1, 1, 2 - 4e-6)]
+    A, b, c, mv = _batch([(rows, (1, 1))])
+    plain = lp2d.classify(A, b, c, mv, M=M, band=1e-3, slacks=())
+    assert torch.equal(plain["objective_hi"], plain["objective"])
+    ref = lp2d.classify(A, b, c, mv, M=M, band=1e-3, slacks=(),
+                        feasibility=1e-5)
+    assert float(ref["objective"][0]) == pytest.approx(2 - 4e-6, abs=1e-12)
+    # every row loosened by 1e-5 along its unit normal: the third still
+    # binds, 1e-5 * sqrt(2) farther out, past the corner's 2
+    assert float(ref["objective_hi"][0]) == pytest.approx(
+        2 - 4e-6 + 1e-5 * math.sqrt(2), abs=1e-12)
+    from lpbench import judge
+    x = torch.tensor([[1.0, 1.0]], dtype=torch.float64)   # the corner
+    for cfg, gap in (({"band": 1e-3, "slacks": []}, 4e-6 / (2 - 4e-6)),
+                     ({"band": 1e-3, "slacks": [], "feasibility": 1e-5}, 0)):
+        t = judge.Tally(lp2d)
+        r = t.classify(A, b, c, mv, {"M": M, "tolerance": cfg})
+        t.add(r, A, b, c, mv, x, torch.ones(1, dtype=torch.bool),
+              torch.tensor([2.0], dtype=torch.float64), M)
+        assert t.obj_gap == pytest.approx(gap, abs=1e-12)
+    # a point below the optimum is as far off either way
+    t = judge.Tally(lp2d)
+    t.add(ref, A, b, c, mv, 0.5 * x, torch.ones(1, dtype=torch.bool),
+          torch.tensor([1.0], dtype=torch.float64), M)
+    assert t.obj_gap == pytest.approx((1 - 4e-6) / (2 - 4e-6), abs=1e-12)
