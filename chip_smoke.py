@@ -51,6 +51,11 @@ and prints one JSON object per line:
    launches over a run (``Launches``) counts ``prep``'s and ``finish``'s
    over the same run, prints them beside (``front_launches``) and checks
    one of each with every kernel launch of an unshuffled solve.
+4c. ``crowd_grid``  the crowd's neighbour kernel (``neighbours_cuda``,
+   ``csrc/crowd_grid.cu``) at 16,384 agents on the crowd cell's lead
+   state: equal in bits to the plain grid (``grid.neighbours_plain``),
+   timed by CUDA-graph replays beside its bytes bound and the plain
+   version's time, with its ``ptxas`` report.
 5. ``serve``   ``BatchScheduler`` over every visible card (``n_devices``)
    answering 8192 single-LP requests of mixed
    size and kind: every future resolves, a sample re-solved directly is
@@ -789,6 +794,76 @@ def phase_front(device, card: str) -> None:
     activity)."""
     entries = [front_entry(device, card, *shape) for shape in FRONT_SHAPES]
     emit({"phase": "front", "entries": entries, "card": card})
+
+
+# The crowd cell's configuration and a seed for its spawn's perturbations.
+CROWD_CONFIG = "lpbench/configs/crowd-16384.json"
+CROWD_GRID_SEED = 3000000019
+CROWD_GRID_SOURCE = "src/repro_torch/kernels/csrc/crowd_grid.cu"
+
+
+def phase_crowd_grid(device, card: str) -> dict:
+    """The crowd's neighbour kernel (``neighbours_cuda``) at 16,384 agents
+    on the crowd cell's lead state (RVO2's Blocks after the configuration's
+    lead steps, the groups in contact): its ``Neighbours`` equal to the plain
+    version's in bits, the kernel and the whole query (the binning, then the
+    kernel) timed by CUDA-graph replays beside the kernel's bytes bound (the
+    positions, the order, the cells, the grid's starts and counts read once,
+    ``idx``, ``valid`` and ``count`` written once) and the plain version's
+    time."""
+    from lpbench.loops.crowd_step import params
+    from lpbench.problems import crowd_blocks
+    from repro_torch.crowd import CrowdState, grid, step_direct
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.crowd_grid import neighbours_cuda
+    from repro_torch.solver import SolverSpec
+    with open(os.path.join(ROOT, CROWD_CONFIG)) as f:
+        cfg = json.load(f)
+    prm = params(cfg)
+    pos, goal, eps = crowd_blocks.spawn(cfg["problem"], CROWD_GRID_SEED)
+    st = CrowdState.start(pos.to(device), goal.to(device), eps.to(device))
+    solver = SolverSpec(backend=cfg["solver"]["backend"], M=float(cfg["M"]),
+                        dtype=cfg["dtype"]).build(device=device)
+    for _ in range(int(cfg["episode"]["lead_steps"])):
+        st = step_direct(st, solver, prm)[0]
+    p, dist, k = st.pos, prm.neighbor_dist, prm.max_neighbors
+    kw = dict(dist=dist, k=k, world=prm.world, capacity=prm.capacity,
+              fallback=prm.fallback)
+    G, _, cell, order, counts, start = grid._bins(p, dist, prm.world)
+
+    def kernel():
+        return neighbours_cuda(p, cell, order, start, counts, grid=G,
+                               dist=dist, k=k)
+
+    def query():
+        return grid.neighbours(p, **kw)
+
+    def plain():
+        return grid.neighbours_plain(p, **kw)
+
+    got, want = query(), plain()
+    fields = ("idx", "valid", "count", "over_cells")
+    equal = {f: torch.equal(getattr(got, f), getattr(want, f))
+             for f in fields}
+    n = p.shape[0]
+    nbytes = n * (8 + 8 + 8) + 2 * G * G * 8 + n * k * (8 + 1) + n * 8
+    entry = {
+        "phase": "crowd_grid", "name": "neighbours_cuda", "route": "cuda",
+        "source": CROWD_GRID_SOURCE, "replaces": "the plain grid's gather, "
+        "top-k and second pass (no TPU kernel)", "agents": n, "k": k,
+        "grid": G, "state": f"lead ({cfg['episode']['lead_steps']} steps)",
+        "bits_equal": equal, "plain_unplaced": int(want.unplaced),
+        "over_cells": int(want.over_cells),
+        "neighbours": int(got.count.sum()),
+        "ms": time_device(kernel), "query_ms": time_device(query),
+        "plain_ms": time_device(plain), "call_ms": time_launches(kernel),
+        "bound_ms": nbytes / PEAKS.hbm_bytes_s * 1e3, "bound_by": "bytes",
+        "bytes": nbytes, "nvcc_seconds": _build.build_seconds("crowd_grid"),
+        "kernels": _build.kernel_resources("crowd_grid"), "card": card}
+    emit(entry)
+    check(int(want.unplaced) == 0 and all(equal.values()),
+          f"neighbours_cuda differs from the plain grid: {entry}")
+    return entry
 
 
 GEOMETRY = ("bucket_m", "b_pad", "dtype", "tile", "chunk")
@@ -3298,6 +3373,7 @@ def main() -> int:
         rgb_cuda.launches = 0
         phase_solver(device, card, entries)
         phase_front(device, card)
+        phase_crowd_grid(device, card)
         serve = phase_serve(default_devices(), card)
         phase_pdhg(device, card)
         phase_tune(device, card)

@@ -7,7 +7,8 @@ agent-agent half-planes of RVO2's ``Agent::computeNewVelocity``.  A step:
 
     grid      each agent's nearest neighbours within ``neighbor_dist``,
               at most ``max_neighbors``, from a uniform grid on the device
-              (no N x N tensor, no host sync)
+              (no N x N tensor, no host sync; on a card one hand-written
+              kernel scans the agents sorted by cell)
     orca      one half-plane a neighbour from relative position and
               velocity (cut-off circle, legs, overlap), the objective
               towards the goal and eight rows of a speed octagon: one

@@ -4,8 +4,9 @@
 never waits for the device; ``step_served`` hands every agent's LP to
 ``BatchScheduler.submit_many``, flushes, and waits on the futures.  The
 LPs, and so the trajectories, are the same in bits on the same start.  On
-a card the build (about 250 small launches, host-bound as torch
-operations) is captured once as two CUDA graphs and replayed.
+a card the build (the grid's binning and its kernel, then the rows: small
+launches that would hold the host) is captured once as two CUDA graphs and
+replayed.
 
 While the process default tracer records (while a ``torch.profiler``
 session records) a step is a ``crowd.step`` span with the stages
@@ -27,6 +28,7 @@ import torch
 
 from repro_torch.core.lp import PAD_B, LPBatch, LPSolution
 from repro_torch.crowd import grid, orca
+from repro_torch.kernels.crowd_grid import add_launches, neighbours_cuda
 from repro_torch.obs.trace import (close_span, open_span, reset_current_span,
                                    set_current_span, stage)
 
@@ -39,7 +41,10 @@ class CrowdParams:
     """An ORCA deployment: RVO2's agent parameters (its ``Blocks``
     example's defaults), the time step, and the neighbour grid's extent
     (``world``: the half-width of the square it bins), its ``capacity``
-    a cell and the number of agents its second pass can take."""
+    a cell and the number of agents its second pass can take (``fallback``).
+    On a card the grid's kernel tests every agent of a cell, so
+    ``capacity`` only counts the cells over it and ``fallback`` is not
+    read; both bound the plain version (``grid.neighbours_plain``)."""
 
     neighbor_dist: float = 15.0
     max_neighbors: int = 10
@@ -102,9 +107,11 @@ def _rows(pos, vel, goal, eps, nb: grid.Neighbours,
 
 class _Graphs:
     """The build on a card as two CUDA graphs, the grid and then the rows:
-    a step's ~250 small launches cost the host two replays and four
-    copies.  Inputs and outputs are the graphs' own tensors; a replay
-    overwrites the last one's outputs, in stream order."""
+    a step's small launches cost the host two replays and four copies.
+    Inputs and outputs are the graphs' own tensors; a replay overwrites the
+    last one's outputs, in stream order.  The first calls, outside the
+    capture, build and load the grid's kernel; ``grid_launches`` is the
+    kernel's launches in the grid graph, added to its count a replay."""
 
     def __init__(self, state: CrowdState, params: CrowdParams):
         self.inputs = [t.clone() for t in (state.pos, state.vel, state.goal,
@@ -117,8 +124,11 @@ class _Graphs:
             _rows(*self.inputs, _neighbours(pos, params), params)
         torch.cuda.current_stream(dev).wait_stream(side)
         self.grid, self.orca = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        before = neighbours_cuda.launches
         with torch.cuda.graph(self.grid):
             self.nb = _neighbours(pos, params)
+        self.grid_launches = neighbours_cuda.launches - before
+        add_launches(-self.grid_launches)   # captured, not launched
         with torch.cuda.graph(self.orca, pool=self.grid.pool()):
             self.lp = _rows(*self.inputs, self.nb, params)
 
@@ -147,6 +157,7 @@ def build(state: CrowdState, params: CrowdParams,
         nb = _neighbours(state.pos, params)
     else:
         graphs.grid.replay()
+        add_launches(graphs.grid_launches)
         nb = graphs.nb
     st = stage(parent, st, "crowd.orca")
     if graphs is None:

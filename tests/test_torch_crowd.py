@@ -3,7 +3,10 @@
 layout, 4 groups of 8 x 8): each ORCA branch's row, the grid's neighbour
 lists against a brute force, the direct and the served step in bits, a
 step's answers within the configuration's limits, the spans, and the
-benchmark's copy of the reference."""
+benchmark's copy of the reference.  On a card (``gpu``): the grid's kernel
+against its plain version in bits, eager and replayed from the build's CUDA
+graph, and against the brute force where the plain version's second pass
+runs out."""
 from __future__ import annotations
 
 import importlib.util
@@ -18,6 +21,7 @@ import torch
 import crowd_orca_ref as ref
 from repro_torch.crowd import (CrowdParams, CrowdState, grid, orca_rows,
                                step_direct, step_served)
+from repro_torch.kernels.crowd_grid import neighbours_cuda
 from repro_torch.obs import default_tracer
 from repro_torch.serve_lp import BatchScheduler
 from repro_torch.solver import SolverSpec
@@ -157,6 +161,30 @@ def test_agents_the_second_pass_cannot_take_are_counted():
     assert int(nb.over_cells) >= 1 and int(nb.unplaced) > 0
 
 
+def test_the_cpu_takes_the_plain_version_and_launches_nothing():
+    before = neighbours_cuda.launches
+    st = jammed()
+    nb = _neighbours(st)
+    plain = grid.neighbours_plain(st.pos, dist=P.neighbor_dist,
+                                  k=P.max_neighbors, world=P.world,
+                                  capacity=P.capacity, fallback=P.fallback)
+    for key in ("idx", "valid", "count", "over_cells", "unplaced"):
+        assert torch.equal(getattr(nb, key), getattr(plain, key)), key
+    assert neighbours_cuda.launches == before
+
+
+def test_the_kernels_wrapper_refuses_cpu_tensors():
+    """No fallback: the wrapper launches on a card or raises."""
+    before = neighbours_cuda.launches
+    st = blocks()
+    G, _, cell, order, counts, start = grid._bins(st.pos, P.neighbor_dist,
+                                                  P.world)
+    with pytest.raises(ValueError, match="unsupported device"):
+        neighbours_cuda(st.pos, cell, order, start, counts, grid=G,
+                        dist=P.neighbor_dist, k=P.max_neighbors)
+    assert neighbours_cuda.launches == before
+
+
 # -- the two steps -----------------------------------------------------------
 
 def _rgb():
@@ -289,3 +317,123 @@ def test_the_captured_build_equals_the_eager_one_and_never_syncs():
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert int(st.unplaced) == 0
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the grid's CUDA kernel has no CPU "
+                    "mode")
+    return torch.device("cuda", 0)
+
+
+def _on(st, dev):
+    return CrowdState(pos=st.pos.to(dev), vel=st.vel.to(dev),
+                      goal=st.goal.to(dev), eps=st.eps.to(dev),
+                      unplaced=st.unplaced.to(dev))
+
+
+def _lead(dev):
+    """The cell's lead state: RVO2's Blocks at 16,384 agents after the
+    configuration's lead steps, the groups in contact at the centre."""
+    spawn = _load("crowd_test_blocks", "lpbench/problems/crowd_blocks.py")
+    pos, goal, eps = spawn.spawn(CONFIG["problem"], 3000000019)
+    st = CrowdState.start(pos.to(dev), goal.to(dev), eps.to(dev))
+    solver = SolverSpec(backend="kernel", M=float(CONFIG["M"])).build(
+        device=dev)
+    for _ in range(int(CONFIG["episode"]["lead_steps"])):
+        st = step_direct(st, solver, P)[0]
+    return st
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("state", ["spawn", "jammed", "lead", "crowded"])
+def test_the_kernel_equals_the_plain_version_in_bits(state):
+    dev = _card()
+    if state == "lead":
+        st = _lead(dev)
+    else:
+        st = _on({"spawn": blocks, "jammed": jammed,
+                  "crowded": crowded}[state](), dev)
+    fallback = st.n_agents if state == "crowded" else P.fallback
+    plain = grid.neighbours_plain(st.pos, dist=P.neighbor_dist,
+                                  k=P.max_neighbors, world=P.world,
+                                  capacity=P.capacity, fallback=fallback)
+    before = neighbours_cuda.launches
+    nb = _neighbours(st, fallback=fallback)
+    assert neighbours_cuda.launches == before + 1
+    assert int(plain.unplaced) == 0 and int(nb.unplaced) == 0
+    for key in ("idx", "valid", "count", "over_cells"):
+        assert torch.equal(getattr(nb, key), getattr(plain, key)), key
+    if state == "crowded":
+        assert int(nb.over_cells) >= 1
+
+
+@pytest.mark.gpu
+def test_the_kernel_is_exact_where_the_second_pass_runs_out():
+    """``crowded`` with a second pass of 8: the plain version leaves agents
+    unplaced, the kernel equals the brute force on every sure agent."""
+    dev = _card()
+    st = crowded()
+    nb = _neighbours(_on(st, dev), fallback=8)
+    idx, valid, unsure = ref.neighbours(st.pos, dist=P.neighbor_dist,
+                                        k=P.max_neighbors)
+    sure = ~unsure
+    assert int(nb.unplaced) == 0 and int(nb.over_cells) >= 1
+    assert sure.float().mean() > 0.95
+    assert torch.equal(nb.valid.cpu()[sure], valid[sure])
+    assert torch.equal(torch.where(nb.valid, nb.idx, -1).cpu()[sure],
+                       torch.where(valid, idx, -1)[sure])
+
+
+@pytest.mark.gpu
+def test_a_replayed_grid_equals_an_eager_one_and_launches_once_a_step():
+    """A direct step's grid, replayed from its CUDA graph, equals an eager
+    call in bits; each step adds one launch of the kernel and runs no
+    top-k."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.crowd import step as crowd_step
+    dev = _card()
+    st = _on(jammed(), dev)
+    solver = SolverSpec(backend="kernel", M=4.0).build(device=dev)
+    st = step_direct(st, solver, P)[0]          # captures the graphs
+    for _ in range(3):
+        before = neighbours_cuda.launches
+        new = step_direct(st, solver, P)[0]
+        assert neighbours_cuda.launches == before + 1
+        replayed = st.graphs[P].nb
+        eager = crowd_step._neighbours(st.pos, P)
+        for key in ("idx", "valid", "count", "over_cells", "unplaced"):
+            assert torch.equal(getattr(replayed, key),
+                               getattr(eager, key)), key
+        st = new
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        st = step_direct(st, solver, P)[0]
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("neighbours_kernel" in n for n in names) == 1, names
+    assert not [n for n in names if "topk" in n.lower()], names
+
+
+@pytest.mark.gpu
+def test_the_kernels_wrapper_refuses_float16_strided_and_too_many():
+    dev = _card()
+    st = _on(jammed(), dev)
+    G, _, cell, order, counts, start = grid._bins(st.pos, P.neighbor_dist,
+                                                  P.world)
+    args = (cell, order, start, counts)
+    kw = dict(grid=G, dist=P.neighbor_dist, k=P.max_neighbors)
+    with pytest.raises(TypeError, match="float32"):
+        neighbours_cuda(st.pos.half(), *args, **kw)
+    strided = torch.empty((2, st.n_agents), device=dev).t()
+    strided.copy_(st.pos)
+    with pytest.raises(ValueError, match="contiguous"):
+        neighbours_cuda(strided, *args, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        neighbours_cuda(st.pos, cell[::1].repeat(2)[::2], order, start,
+                        counts, **kw)
+    with pytest.raises(ValueError, match="k <= 16"):
+        neighbours_cuda(st.pos, *args, **dict(kw, k=17))
