@@ -7,12 +7,22 @@ Random inputs are generated (and shuffled) by the reference, because a
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
 from repro_torch.core import batch_from_numpy, packed_from_numpy
 
 CPU = torch.device("cpu")
+
+# xdist workers share the cores, and OpenMP pools that spin oversubscribe
+# them: a worker's torch takes its share (outside xdist, torch's default).
+_WORKERS = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
+THREADS = (max(1, len(os.sched_getaffinity(0)) // int(_WORKERS))
+           if _WORKERS else None)
+if THREADS is not None:
+    torch.set_num_threads(THREADS)
 
 # Tolerances of the reference's own kernel tests: FMA contraction and
 # reduction order differ between XLA's fused CPU code and eager torch ops;

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from repro.serve_lp import bench as rbench
+import _torch_compat  # noqa: F401  (this worker's torch threads)
 from repro_torch.serve_lp import bench
 from repro_torch.serve_lp import BatchScheduler
 

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import crowd_orca_ref as ref
+from _torch_compat import CPU
 from repro_torch.crowd import (CrowdParams, CrowdState, grid, orca_rows,
                                step_direct, step_served)
 from repro_torch.kernels.crowd_grid import neighbours_cuda
@@ -31,7 +32,6 @@ CONFIG = json.loads((REPO / "lpbench" / "configs" /
                      "crowd-16384.json").read_text())
 AGENTS = dict(CONFIG["agents"], timeStep=CONFIG["timeStep"])
 P = CrowdParams()
-CPU = torch.device("cpu")
 
 
 def _load(name, rel):

@@ -42,6 +42,7 @@ from repro.models import build_model as r_build_model
 from repro.solver import SolverSpec as RSolverSpec
 from repro.solver import get_solver as r_get_solver
 
+import _torch_compat  # noqa: F401  (this worker's torch threads)
 import _torch_dist_worker as W
 from repro_torch import dist as D
 from repro_torch.ckpt.checkpoint import Checkpointer

@@ -43,6 +43,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_compat  # noqa: F401  (this worker's torch threads)
 from repro_torch import dist as D
 from repro_torch.configs import ARCHS, SHAPES, InputShape, smoke_config
 from repro_torch.kernels.batch_lp import (finish_cuda, prep_cuda, rgb_cuda,

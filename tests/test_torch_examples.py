@@ -27,8 +27,7 @@ import crowd_sim_torch as crowd                     # noqa: E402
 import lp_constrained_training_torch as lp_train    # noqa: E402
 import quickstart_torch as quickstart               # noqa: E402
 import train_lm_torch as train_lm                   # noqa: E402
-
-CPU = torch.device("cpu")
+from _torch_compat import CPU                       # noqa: E402
 
 
 @pytest.fixture(scope="module")

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_compat  # noqa: F401  (this worker's torch threads)
 from repro_torch.core import (adversarial_lp, concat_batches, infeasible_lp,
                               make_batch, normalize_batch, normalize_packed,
                               pack, pack_call_count, pad_packed,

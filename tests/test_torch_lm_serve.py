@@ -41,6 +41,7 @@ from repro.models import layers as RL
 from repro.models.common import ModelConfig as RModelConfig
 from repro.models.common import head_layout as r_head_layout
 
+from _torch_compat import CPU
 from repro_torch.configs import ARCHS, smoke_config
 from repro_torch.launch import serve as serve_mod
 from repro_torch.launch.mesh import make_host_mesh
@@ -54,7 +55,6 @@ from repro_torch.tree import flatten_with_paths
 
 MI1 = MeshInfo(model_size=1, data_size=1)
 RMI1 = RMeshInfo(model_size=1, data_size=1)
-CPU = torch.device("cpu")
 F32 = dict(rtol=1e-5, atol=1e-5)
 ATTN_ARCHS = sorted(a for a, c in ARCHS.items()
                     if c.family in ("dense", "moe", "vlm", "encdec"))

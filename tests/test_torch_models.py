@@ -30,6 +30,7 @@ from repro.models import build_model as r_build_model
 from repro.models import layers as RL
 from repro.models.common import head_layout as r_head_layout
 
+import _torch_compat  # noqa: F401  (this worker's torch threads)
 from repro_torch.configs import (ARCHS, SHAPES, SMOKE_SHAPE, applicable,
                                  input_specs, smoke_config)
 from repro_torch.models import (MeshInfo, build_model, params_from_numpy,

@@ -19,6 +19,7 @@ import torch
 
 import repro.obs.export as rexp
 import repro.obs.trace as rtrace
+import _torch_compat  # noqa: F401  (this worker's torch threads)
 from repro_torch.obs import (FlightRecorder, NOOP_TRACER, SpanBuffer, Tracer,
                              check_span_chains, current_context, device_idle,
                              new_trace_context, parse_trace_header,

@@ -13,6 +13,7 @@ import pytest
 import torch
 from torch.autograd import profiler as autograd_profiler
 
+import _torch_compat  # noqa: F401  (this worker's torch threads)
 from repro_torch.core.lp import make_batch
 from repro_torch.obs import check_span_chains, default_tracer
 from repro_torch.obs.export import validate_chrome_trace

@@ -30,6 +30,7 @@ import ast
 import contextlib
 import io
 import json
+import os
 import pathlib
 import re
 import subprocess
@@ -59,8 +60,9 @@ from benchmarks import (fig3_lp_size, fig4_batch, fig5_transfer,  # noqa: E402
                         tune_cli)
 from repro_torch.core import batch_from_numpy, pack        # noqa: E402
 from repro_torch.launch import dryrun                      # noqa: E402
+import _torch_compat                                       # noqa: E402
+from _torch_compat import CPU                              # noqa: E402
 
-CPU = torch.device("cpu")
 H100 = "NVIDIA H100 80GB HBM3"
 X_TOL = 1e-4
 TWINS = sorted(p.stem for p in (REPO / "benchmarks").glob("pt_*.py"))
@@ -128,6 +130,28 @@ def test_twins_import_neither_jax_nor_the_reference():
                           str(REPO / "src")], capture_output=True, text=True,
                          timeout=300, check=True).stdout.split("\n")[-2]
     assert out == f"{len(TWINS)} []"
+
+
+def test_every_port_test_module_sets_its_workers_threads():
+    """Each ``tests/test_torch_*.py`` imports ``_torch_compat`` at module
+    level, which gives an xdist worker's torch its share of the cores, so
+    the budget holds whichever port module a worker imports first."""
+    missing = []
+    for path in sorted((REPO / "tests").glob("test_torch_*.py")):
+        body = ast.parse(path.read_text()).body
+        names = {a.name for n in body if isinstance(n, ast.Import)
+                 for a in n.names}
+        names |= {n.module for n in body if isinstance(n, ast.ImportFrom)}
+        if "_torch_compat" not in names:
+            missing.append(path.name)
+    assert missing == []
+    workers = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
+    if workers:
+        assert _torch_compat.THREADS == max(
+            1, len(os.sched_getaffinity(0)) // int(workers))
+        assert torch.get_num_threads() == _torch_compat.THREADS
+    else:
+        assert _torch_compat.THREADS is None
 
 
 @pytest.mark.parametrize("call", [

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_compat  # noqa: F401  (this worker's torch threads)
 from _torch_dist_worker import run_world
 from repro_torch.launch.pipeline import bubble_fraction
 

@@ -16,6 +16,7 @@ import torch
 
 import repro.roofline as rr
 from repro.configs import ARCHS as R_ARCHS
+import _torch_compat  # noqa: F401  (this worker's torch threads)
 from repro_torch import roofline as pr
 from repro_torch.configs import ARCHS, smoke_config
 from repro_torch.models import MeshInfo, build_model

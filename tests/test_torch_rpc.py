@@ -22,6 +22,7 @@ import torch
 
 import repro.serve_lp as rsv
 import repro.serve_lp.rpc as rrpc
+import _torch_compat  # noqa: F401  (this worker's torch threads)
 from repro_torch.serve_lp import BatchScheduler, ExecutableCache, SolverSpec
 from repro_torch.serve_lp.metrics import ServeMetrics
 from repro_torch.serve_lp.rpc import (AdmissionPolicy, QuotaManager, Request,

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import repro.serve_lp as rsv
+import _torch_compat  # noqa: F401  (this worker's torch threads)
 import repro_torch.serve_lp as tsv
 from repro_torch.core import (PackedLPBatch, batch_from_numpy,
                               pack_call_count, ragged_feasible_lp)

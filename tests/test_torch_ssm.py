@@ -50,6 +50,7 @@ from repro.models import layers as RL
 from repro.models.common import ModelConfig as RModelConfig
 from repro.optim import AdamW as RAdamW
 
+import _torch_compat  # noqa: F401  (this worker's torch threads)
 from repro_torch.configs import ARCHS, smoke_config
 from repro_torch.data.pipeline import TokenSource, for_model
 from repro_torch.launch import serve as serve_mod

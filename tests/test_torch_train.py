@@ -39,6 +39,7 @@ from repro.solver import SolverSpec as RSolverSpec
 from repro.solver import get_solver as r_get_solver
 from repro.core.lp import make_batch as r_make_batch
 
+from _torch_compat import CPU
 from repro_torch.ckpt.checkpoint import Checkpointer
 from repro_torch.configs import ARCHS, smoke_config
 from repro_torch.data.pipeline import (DataConfig, TokenSource, data_stream,
@@ -54,7 +55,6 @@ from repro_torch.optim import (AdamW, AdamWState, apply_updates,
                                sync_duplicated_grads)
 from repro_torch.tree import flatten_with_paths, tree_leaves, tree_map
 
-CPU = torch.device("cpu")
 
 
 def _np(x):
