@@ -50,7 +50,11 @@ and prints one JSON object per line:
    ``prep`` beside its bytes bound.  Every phase that counts ``rgb_cuda``'s
    launches over a run (``Launches``) counts ``prep``'s and ``finish``'s
    over the same run, prints them beside (``front_launches``) and checks
-   one of each with every kernel launch of an unshuffled solve.
+   one of each with every kernel launch of an unshuffled solve.  Then the
+   fused solve from its launch plans at the figure-3 batch (float32 and
+   float64), the figure-4 batch, the crowd's step and a serving flush:
+   its host time a call against the operator's path, in turns in one
+   process, both equal to the eager chain in bits.
 4c. ``crowd_grid``  the crowd's neighbour kernel (``neighbours_cuda``,
    ``csrc/crowd_grid.cu``) at 16,384 agents on the crowd cell's lead
    state: equal in bits to the plain grid (``grid.neighbours_plain``),
@@ -788,12 +792,107 @@ def front_entry(device, card: str, path: str, layout: str, B: int, m: int,
     return entry
 
 
+# The fused solve's shapes on the main paths, for its launch plans: (path,
+# layout, B, m, dtype).  The figure-3 batch in float32 and float64, the
+# figure-4 batch, the crowd's step and a serving flush.
+PLAN_SHAPES = (("solver", "aos", 16384, 256, "float32"),
+               ("solver", "aos", 16384, 256, "float64"),
+               ("solver", "aos", 131072, 64, "float32"),
+               ("crowd", "aos", 16384, 8, "float32"),
+               ("serve", "packed", 64, 1024, "float32"))
+PLAN_CALLS = 1000
+
+
+def plan_entry(device, card: str, path: str, layout: str, B: int, m: int,
+               dtype: str, M: float = 1.0e4) -> dict:
+    """A fused solve at one shape from its launch plan (``planned``)
+    against the same solve through the operator ``repro_torch::rgb``
+    (``op``: the path a dispatch mode takes), in turns in this process
+    (op, planned, planned, op), ``PLAN_CALLS`` calls a turn: each
+    call's host time from entering ``solve_with_spec`` to its return,
+    the device synchronised after it, outside the time.  Both held bit for
+    bit to the eager chain."""
+    from repro_torch.core import batch_from_numpy
+    from repro_torch.solver import SolverSpec, solve_with_spec
+    from repro_torch.solver import solver as S
+    rng = np.random.default_rng([SEED, 32, B, m])
+    A, b, c, mv = mixed_arrays(rng, B, m)
+    npdt = np.dtype(dtype)
+    lp = batch_from_numpy(A.astype(npdt), b.astype(npdt), c.astype(npdt),
+                          mv, device=device)
+    batch = lp.pack() if layout == "packed" else lp
+    spec = SolverSpec(backend="kernel", M=M, dtype=dtype)
+    real = S.unwatched
+
+    def op_route(tensors):
+        return False
+
+    def turn(planned: bool) -> list:
+        S.unwatched = real if planned else op_route
+        try:
+            solve_with_spec(spec, batch)
+            torch.cuda.synchronize()
+            host = []
+            for _ in range(PLAN_CALLS):
+                t0 = time.perf_counter()
+                solve_with_spec(spec, batch)
+                host.append(time.perf_counter() - t0)
+                torch.cuda.synchronize()
+            return host
+        finally:
+            S.unwatched = real
+
+    def same(sol, ref) -> bool:
+        return (torch.equal(bits(sol.x), bits(ref.x))
+                and torch.equal(sol.feasible, ref.feasible)
+                and torch.equal(bits(sol.objective), bits(ref.objective)))
+
+    h0, m0 = S.solve_with_spec.plan_hits, S.solve_with_spec.plan_misses
+    times = {"op": [], "planned": []}
+    for name in ("op", "planned", "planned", "op"):
+        times[name] += turn(name == "planned")
+    planned = solve_with_spec(spec, batch)
+    S.unwatched = op_route
+    try:
+        op = solve_with_spec(spec, batch)
+    finally:
+        S.unwatched = real
+    real_fused = S._takes_fused
+    S._takes_fused = lambda *a: False
+    try:
+        eager = solve_with_spec(spec, batch)
+    finally:
+        S._takes_fused = real_fused
+    torch.cuda.synchronize()
+    ms = {k: np.asarray(v) * 1e3 for k, v in times.items()}
+    entry = {
+        "name": "launch_plan", "path": path, "layout": layout,
+        "dtype": dtype, "shape": [B, m], "calls_a_turn": PLAN_CALLS,
+        "planned_bits_equal": same(planned, eager),
+        "op_bits_equal": same(op, eager),
+        "plan_hits": S.solve_with_spec.plan_hits - h0,
+        "plan_misses": S.solve_with_spec.plan_misses - m0,
+        **{f"{k}_host_ms_mean": float(v.mean()) for k, v in ms.items()},
+        **{f"{k}_host_ms_median": float(np.median(v))
+           for k, v in ms.items()},
+        "card": card}
+    check(entry["planned_bits_equal"] and entry["op_bits_equal"],
+          f"a planned or operator solve differs from the eager chain: "
+          f"{entry}")
+    check(entry["plan_misses"] == 1,
+          f"the launch plan was made more than once: {entry}")
+    return entry
+
+
 def phase_front(device, card: str) -> None:
     """The front end's passes at every main path's shape (run early: a
     long process's later profiler sessions can come back without device
-    activity)."""
+    activity), then the fused solve from its launch plans against the
+    operator's path."""
     entries = [front_entry(device, card, *shape) for shape in FRONT_SHAPES]
-    emit({"phase": "front", "entries": entries, "card": card})
+    plans = [plan_entry(device, card, *shape) for shape in PLAN_SHAPES]
+    emit({"phase": "front", "entries": entries, "plans": plans,
+          "card": card})
 
 
 # The crowd cell's configuration and a seed for its spawn's perturbations.

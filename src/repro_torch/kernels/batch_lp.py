@@ -45,6 +45,9 @@ around the kernel, from the same library: one normalises, packs and pads a
 batch into the kernel's arrays, the other computes the objective and the
 flags.  The solver takes them for the kernel backend on the card; their
 plain version is its eager front end (``solver/solver.py``).
+:class:`FusedLaunch` binds the three launches of one solve shape once, for
+the solver's launch plans: a call from a plan enqueues them through the
+ctypes entry points, with no checks and no operator dispatch.
 """
 from __future__ import annotations
 
@@ -339,6 +342,14 @@ def _check_cuda(name: str, dtype: torch.dtype, device: torch.device,
             raise ValueError(f"{name}: {key} must be contiguous on {device}")
 
 
+def _refused(name: str, code: int) -> RuntimeError:
+    """The error of a launch of ``name`` the library refused with
+    ``code`` (as ``<name>_cuda``, its wrapper, reports it)."""
+    msg = _bound["error_string"](code).decode(errors="replace")
+    return RuntimeError(f"{name}_cuda: launch refused (cuda error "
+                        f"{code}: {msg})")
+
+
 def _enqueue(name: str, dtype: torch.dtype, device: torch.device,
              *args) -> None:
     """Launch the entry point ``name`` for ``dtype`` with ``args`` on
@@ -348,9 +359,7 @@ def _enqueue(name: str, dtype: torch.dtype, device: torch.device,
     with torch.cuda.device(device):
         code = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if code != 0:
-        msg = _bound["error_string"](code).decode(errors="replace")
-        raise RuntimeError(f"{name}_cuda: launch refused (cuda error "
-                           f"{code}: {msg})")
+        raise _refused(name, code)
 
 
 def rgb_cuda(
@@ -432,13 +441,21 @@ def _launch(L, c, m_valid, M: float, tile: int, g: LaunchGeometry):
                  m_pad, tile, float(M), g.warps, int(g.staged),
                  g.smem_bytes)
     except RuntimeError as e:
-        raise RuntimeError(f"{e} for B={B} m_pad={m_pad} tile={tile} "
-                           f"{L.dtype} {g}") from None
-    key = (B, m_pad, str(L.dtype).removeprefix("torch."), tile)
+        raise _rgb_refused(e, B, m_pad, tile, L.dtype, g) from None
+    _count_rgb((B, m_pad, str(L.dtype).removeprefix("torch."), tile))
+    return x, feas
+
+
+def _rgb_refused(e: RuntimeError, B: int, m_pad: int, tile: int,
+                 dtype: torch.dtype, g: LaunchGeometry) -> RuntimeError:
+    return RuntimeError(f"{e} for B={B} m_pad={m_pad} tile={tile} "
+                        f"{dtype} {g}")
+
+
+def _count_rgb(key) -> None:
     with _launch_lock:
         rgb_cuda.launches += 1
         rgb_cuda.geometries[key] = rgb_cuda.geometries.get(key, 0) + 1
-    return x, feas
 
 
 # Kernel launches made by this process (plain-version calls do not count):
@@ -450,6 +467,31 @@ rgb_cuda.geometries = {}
 # ---------------------------------------------------------------------------
 # The solver front end's passes around the kernel: prep and finish
 # ---------------------------------------------------------------------------
+
+
+def _check_prep(src, b, c, m_valid, *, m_pad: int, b_pad: int):
+    """:func:`prep_cuda`'s checks, raising as it does: ``(B, m)``."""
+    packed = b is None
+    dt, dev = src.dtype, src.device
+    extra = {} if packed else {"b": b}
+    _check_cuda("prep_cuda", dt, dev, src=src, c=c, m_valid=m_valid, **extra)
+    B = src.shape[0]
+    m = src.shape[2] if packed else src.shape[1]
+    want = (B, 4, m) if packed else (B, m, 2)
+    if (tuple(src.shape) != want or (not packed and tuple(b.shape) != (B, m))
+            or tuple(c.shape) != (B, 2) or m_valid.numel() != B
+            or (not packed and b.dtype != dt) or c.dtype != dt
+            or m_valid.dtype != torch.int32):
+        raise ValueError(
+            f"prep_cuda: want src {want}, b ({B}, {m}) and c ({B}, 2) "
+            f"{dt}, m_valid {B} int32; got src {tuple(src.shape)}, b "
+            f"{None if packed else (tuple(b.shape), b.dtype)}, c "
+            f"{tuple(c.shape)} {c.dtype}, m_valid {tuple(m_valid.shape)} "
+            f"{m_valid.dtype}")
+    if m_pad < max(m, 1) or m_pad % LANE or b_pad < B:
+        raise ValueError(f"prep_cuda: m_pad {m_pad} must be a positive "
+                         f"multiple of {LANE} >= {m}, b_pad {b_pad} >= {B}")
+    return B, m
 
 
 def prep_cuda(src: torch.Tensor, b: Optional[torch.Tensor],
@@ -473,24 +515,7 @@ def prep_cuda(src: torch.Tensor, b: Optional[torch.Tensor],
     """
     packed = b is None
     dt, dev = src.dtype, src.device
-    extra = {} if packed else {"b": b}
-    _check_cuda("prep_cuda", dt, dev, src=src, c=c, m_valid=m_valid, **extra)
-    B = src.shape[0]
-    m = src.shape[2] if packed else src.shape[1]
-    want = (B, 4, m) if packed else (B, m, 2)
-    if (tuple(src.shape) != want or (not packed and tuple(b.shape) != (B, m))
-            or tuple(c.shape) != (B, 2) or m_valid.numel() != B
-            or (not packed and b.dtype != dt) or c.dtype != dt
-            or m_valid.dtype != torch.int32):
-        raise ValueError(
-            f"prep_cuda: want src {want}, b ({B}, {m}) and c ({B}, 2) "
-            f"{dt}, m_valid {B} int32; got src {tuple(src.shape)}, b "
-            f"{None if packed else (tuple(b.shape), b.dtype)}, c "
-            f"{tuple(c.shape)} {c.dtype}, m_valid {tuple(m_valid.shape)} "
-            f"{m_valid.dtype}")
-    if m_pad < max(m, 1) or m_pad % LANE or b_pad < B:
-        raise ValueError(f"prep_cuda: m_pad {m_pad} must be a positive "
-                         f"multiple of {LANE} >= {m}, b_pad {b_pad} >= {B}")
+    B, m = _check_prep(src, b, c, m_valid, m_pad=m_pad, b_pad=b_pad)
     L = torch.empty((b_pad, 4, m_pad), dtype=dt, device=dev)
     c_out = torch.empty((b_pad, 2), dtype=dt, device=dev)
     mv_out = torch.empty((b_pad, 1), dtype=torch.int32, device=dev)
@@ -504,6 +529,19 @@ def prep_cuda(src: torch.Tensor, b: Optional[torch.Tensor],
     return L, c_out, mv_out
 
 
+def _check_finish(x, feas, c, batch: int) -> None:
+    """:func:`finish_cuda`'s checks, raising as it does."""
+    dt = x.dtype
+    _check_cuda("finish_cuda", dt, x.device, x=x, feas=feas, c=c)
+    if (x.ndim != 2 or x.shape[1] != 2 or tuple(c.shape) != tuple(x.shape)
+            or c.dtype != dt or feas.dtype != torch.int32
+            or feas.numel() != x.shape[0] or not 0 <= batch <= x.shape[0]):
+        raise ValueError(
+            f"finish_cuda: want x and c (n, 2) {dt}, feas n int32, batch "
+            f"<= n; got x {tuple(x.shape)}, c {tuple(c.shape)} {c.dtype}, "
+            f"feas {tuple(feas.shape)} {feas.dtype}, batch {batch}")
+
+
 def finish_cuda(x: torch.Tensor, feas: torch.Tensor, c: torch.Tensor,
                 batch: int):
     """The objective and the flags of the first ``batch`` problems, in one
@@ -513,14 +551,7 @@ def finish_cuda(x: torch.Tensor, feas: torch.Tensor, c: torch.Tensor,
     ``(c[:batch] * x[:batch]).sum(-1)`` and ``feas[:batch, 0].to(bool)``.
     ``finish_cuda.launches`` counts launches."""
     dt, dev = x.dtype, x.device
-    _check_cuda("finish_cuda", dt, dev, x=x, feas=feas, c=c)
-    if (x.ndim != 2 or x.shape[1] != 2 or tuple(c.shape) != tuple(x.shape)
-            or c.dtype != dt or feas.dtype != torch.int32
-            or feas.numel() != x.shape[0] or not 0 <= batch <= x.shape[0]):
-        raise ValueError(
-            f"finish_cuda: want x and c (n, 2) {dt}, feas n int32, batch "
-            f"<= n; got x {tuple(x.shape)}, c {tuple(c.shape)} {c.dtype}, "
-            f"feas {tuple(feas.shape)} {feas.dtype}, batch {batch}")
+    _check_finish(x, feas, c, batch)
     obj = torch.empty((batch,), dtype=dt, device=dev)
     feasible = torch.empty((batch,), dtype=torch.bool, device=dev)
     _enqueue("finish", dt, dev, x.data_ptr(), feas.data_ptr(),
@@ -532,3 +563,130 @@ def finish_cuda(x: torch.Tensor, feas: torch.Tensor, c: torch.Tensor,
 
 prep_cuda.launches = 0
 finish_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The three launches of one solve shape, bound once
+# ---------------------------------------------------------------------------
+
+
+def current_card() -> int:
+    """The index of the current card (CUDA initialised)."""
+    return torch._C._cuda_getDevice()
+
+
+def raw_stream(index: int) -> int:
+    """The handle of PyTorch's current stream on card ``index``: what
+    ``torch.cuda.current_stream(index).cuda_stream`` gives, without making
+    a stream object."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+class FusedLaunch:
+    """``prep``, ``rgb`` and ``finish`` for one solve shape on one card,
+    bound once: what :func:`prep_cuda`, :func:`rgb_cuda` and
+    :func:`finish_cuda` launch, with none of their checks, no operator
+    dispatch and no device context or stream read of their own.
+
+    The solver's launch plan (``solver/solver.py``) builds one after the
+    first call of a shape has passed those checks, and hands each later
+    call's tensors, which have the same shapes, dtype, device and
+    contiguity, to its methods.  Each method enqueues one launch on
+    ``stream`` (:func:`raw_stream`; the caller has made ``device``
+    current), counts it as the wrapper does (``rgb_cuda.geometries``
+    included), and raises a refused launch with the wrapper's message.
+
+    What ``prep`` writes and ``rgb`` adds and ``finish`` reads (``L``,
+    ``c``, ``m_valid`` and the flags) lies in one allocation a call, the
+    *workspace*, which ``prep`` returns and :meth:`views` shows as the
+    wrappers' tensors; ``x``, the objective and the flags returned are
+    allocations of their own.  ``L`` starts the workspace (16-byte
+    aligned, as the bulk copies need), and every other array starts at a
+    multiple of its element size.
+    """
+
+    __slots__ = ("dtype", "device", "batch", "b_pad", "m_pad", "_prep",
+                 "_rgb", "_finish", "_prep_args", "_rgb_args", "_rgb_key",
+                 "_geometry", "_tile", "_offsets", "_bytes")
+
+    def __init__(self, dtype: torch.dtype, device: torch.device, *,
+                 batch: int, m: int, m_pad: int, b_pad: int, tile: int,
+                 M: float, packed: bool, normalize: bool,
+                 geometry: LaunchGeometry):
+        self.dtype, self.device = dtype, device
+        self.batch, self.b_pad, self.m_pad = batch, b_pad, m_pad
+        self._prep = _launcher("prep", dtype)
+        self._rgb = _launcher("rgb", dtype)
+        self._finish = _launcher("finish", dtype)
+        self._prep_args = (batch, m, b_pad, m_pad, int(packed),
+                           int(normalize), NORM_EPS)
+        self._rgb_args = (b_pad, m_pad, tile, float(M), geometry.warps,
+                          int(geometry.staged), geometry.smem_bytes)
+        self._rgb_key = (b_pad, m_pad, str(dtype).removeprefix("torch."),
+                         tile)
+        self._geometry, self._tile = geometry, tile
+        item = dtype.itemsize
+        c_at = b_pad * 4 * m_pad * item          # L (b_pad, 4, m_pad)
+        mv_at = c_at + b_pad * 2 * item           # c (b_pad, 2)
+        feas_at = mv_at + b_pad * 4               # m_valid (b_pad, 1)
+        self._offsets = (c_at, mv_at, feas_at)
+        self._bytes = feas_at + b_pad * 4         # feas (b_pad, 1)
+
+    def views(self, ws: torch.Tensor):
+        """``(L, c, m_valid, feas)`` in the workspace ``ws``, as the
+        wrappers' tensors (for their checks)."""
+        c_at, mv_at, feas_at = self._offsets
+        n, dt = self.b_pad, self.dtype
+        return (ws[:c_at].view(dt).view(n, 4, self.m_pad),
+                ws[c_at:mv_at].view(dt).view(n, 2),
+                ws[mv_at:feas_at].view(torch.int32).view(n, 1),
+                ws[feas_at:].view(torch.int32).view(n, 1))
+
+    def prep(self, src: torch.Tensor, b: Optional[torch.Tensor],
+             c: torch.Tensor, m_valid: torch.Tensor,
+             stream: int) -> torch.Tensor:
+        """:func:`prep_cuda`'s ``L``, ``c`` and ``m_valid``, written into a
+        new workspace, which it returns."""
+        ws = torch.empty((self._bytes,), dtype=torch.uint8,
+                         device=self.device)
+        at = ws.data_ptr()
+        c_at, mv_at, _ = self._offsets
+        code = self._prep(src.data_ptr(),
+                          None if b is None else b.data_ptr(),
+                          c.data_ptr(), m_valid.data_ptr(), at, at + c_at,
+                          at + mv_at, *self._prep_args, stream)
+        if code:
+            raise _refused("prep", code)
+        with _launch_lock:
+            prep_cuda.launches += 1
+        return ws
+
+    def rgb(self, ws: torch.Tensor, stream: int) -> torch.Tensor:
+        """:func:`rgb_cuda` on the workspace: ``x``; its flags go to the
+        workspace."""
+        n = self.b_pad
+        x = torch.empty((n, 2), dtype=self.dtype, device=self.device)
+        at = ws.data_ptr()
+        c_at, mv_at, feas_at = self._offsets
+        code = self._rgb(at, at + c_at, at + mv_at, x.data_ptr(),
+                         at + feas_at, *self._rgb_args, stream)
+        if code:
+            raise _rgb_refused(_refused("rgb", code), n, self.m_pad,
+                               self._tile, self.dtype, self._geometry)
+        _count_rgb(self._rgb_key)
+        return x
+
+    def finish(self, x: torch.Tensor, ws: torch.Tensor, stream: int):
+        """:func:`finish_cuda`'s ``(objective, feasible)``."""
+        dt, dev, n = self.dtype, self.device, self.batch
+        obj = torch.empty((n,), dtype=dt, device=dev)
+        feasible = torch.empty((n,), dtype=torch.bool, device=dev)
+        at = ws.data_ptr()
+        c_at, _, feas_at = self._offsets
+        code = self._finish(x.data_ptr(), at + feas_at, at + c_at,
+                            obj.data_ptr(), feasible.data_ptr(), n, stream)
+        if code:
+            raise _refused("finish", code)
+        with _launch_lock:
+            finish_cuda.launches += 1
+        return obj, feasible

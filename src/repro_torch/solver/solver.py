@@ -38,6 +38,22 @@ chain in every bit; every other call (the CPU, ``meta``, ``interpret``,
 the dense backends, a shuffled spec) runs that chain, which is their plain
 version.
 
+Such a solve on plain CUDA tensors, with no dispatch or function mode
+active, runs from a *launch plan*: one a key of what the call can observe
+(the spec object the caller holds, the active tuning table's
+:func:`~repro_torch.tune.table_version`, and each tensor's shape, dtype,
+card and contiguity).  The first call of a key resolves the shape, runs
+the wrappers' checks and binds the three launches
+(:class:`~repro_torch.kernels.batch_lp.FusedLaunch`); a later call looks
+the plan up and enqueues ``prep``, ``rgb`` and ``finish`` through their
+ctypes entry points, with no resolution, no checks and no operator
+dispatch.  Under a mode (``FlopCounterMode``, fake tensors, the dry run's
+counters) or on a tensor subclass the call keeps ``_solve_fused``, which
+dispatches ``torch.ops.repro_torch.rgb`` for them to see.  The plans sit
+in one bounded module-level cache (:data:`PLAN_CACHE_SIZE`) that
+``Solver.solve`` and ``solve_with_spec`` share; ``solve_with_spec``'s
+``plan_hits`` and ``plan_misses`` count its use.
+
 Launch geometry left unset on the spec (``tile``/``chunk`` ``None``) is
 pinned here per input shape via
 :meth:`~repro_torch.solver.spec.SolverSpec.resolve_for_shape` — explicit
@@ -45,12 +61,13 @@ values win, then the measured :mod:`repro_torch.tune` table for this
 device, then the static heuristics.
 
 There is no compile cache (PyTorch runs eagerly; the CUDA kernel is built
-once per process): ``cache_info`` is bookkeeping of the distinct shapes
-solved.
+once per process; the launch plans hold no code, only what each call
+resolved): ``cache_info`` is bookkeeping of the distinct shapes solved.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+import threading
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -62,6 +79,12 @@ from repro_torch.core.packed import (PackedLPBatch, count_pack,
 from repro_torch.core.seidel import (solve_naive, solve_naive_packed,
                                      solve_rgb, solve_rgb_packed)
 from repro_torch.device import DeviceLike, as_device
+from repro_torch.kernels.batch_lp import (LANE, FusedLaunch, LaunchGeometry,
+                                          _check_finish, _check_launch,
+                                          _check_prep, _pick_tile,
+                                          current_card, finish_cuda,
+                                          launch_geometry, prep_cuda,
+                                          raw_stream, rgb_cuda, rgb_plain)
 from repro_torch.obs.trace import Span, close_span, open_span, stage
 from repro_torch.pdhg import solve_pdhg, solve_pdhg_packed
 from repro_torch.solver.spec import RGB_DEFAULT_TILE, SolverSpec
@@ -88,6 +111,10 @@ def solve_with_spec(spec: SolverSpec, batch: AnyLPBatch,
     backend takes them; the fused front end records its ``prep`` launch
     as ``.normalize`` and its ``finish`` as ``.objective``); under a flush
     they go to the flush's tracer, under its ``flush.dispatch`` span.
+    A call from a launch plan records ``.cast`` (the plan's lookup, and on
+    a miss its construction and the wrappers' checks), ``.normalize``,
+    ``.launch`` and ``.objective``, and marks the ``solve`` span ``plan``
+    ``hit`` or ``miss``.
     """
     top = open_span("solve")
     if top is None:
@@ -101,6 +128,15 @@ def solve_with_spec(spec: SolverSpec, batch: AnyLPBatch,
 def _solve(spec: SolverSpec, batch: AnyLPBatch,
            generator: Optional[torch.Generator],
            top: Optional[Span]) -> LPSolution:
+    key = _plan_key(spec, batch, generator)
+    if key is not None:
+        return _solve_keyed(spec, batch, key, top)
+    return _solve_eager(spec, batch, generator, top)
+
+
+def _solve_eager(spec: SolverSpec, batch: AnyLPBatch,
+                 generator: Optional[torch.Generator],
+                 top: Optional[Span]) -> LPSolution:
     is_packed = isinstance(batch, PackedLPBatch)
     m = batch.m_pad if is_packed else batch.m
     device = batch.device
@@ -180,11 +216,6 @@ def _solve_dense(spec: SolverSpec, batch: LPBatch) -> LPSolution:
 
 def _solve_kernel(spec: SolverSpec, pb: PackedLPBatch,
                   top: Optional[Span], st: Optional[Span]) -> LPSolution:
-    # Deferred import: kernels.ops wraps this package for its public
-    # compatibility surface, so the dependency must point one way only.
-    from repro_torch.kernels.batch_lp import (LANE, _pick_tile, rgb_cuda,
-                                              rgb_plain)
-
     st = stage(top, st, "solve.pad")
     B = pb.batch
     pb = pad_packed(pb, -(-pb.m_pad // LANE) * LANE)
@@ -217,7 +248,8 @@ def _takes_fused(spec: SolverSpec, device: torch.device,
     """Whether a solve takes the fused front end: the kernel on the card,
     no shuffle, and something to solve.  Every other call (the CPU,
     ``meta``, ``interpret``, the dense backends, a shuffled spec) runs the
-    eager chain."""
+    eager chain.  Unwatched CUDA tensors take it from a launch plan
+    (``_solve_keyed``), which asks this again on every call."""
     return (spec.backend == "kernel" and not spec.interpret
             and generator is None and device.type == "cuda"
             and batch > 0 and m > 0)
@@ -236,11 +268,9 @@ def _solve_fused(spec: SolverSpec, batch: AnyLPBatch, is_packed: bool,
     kernel's arrays (stage ``solve.normalize``), ``rgb_cuda`` solves
     (``solve.launch``), ``finish_cuda`` writes the objective and the flags
     (``solve.objective``).  Equal in bits to the eager chain; an AoS batch
-    counts as one pack."""
-    from repro_torch.kernels.batch_lp import (LANE, _pick_tile,
-                                              finish_cuda, prep_cuda,
-                                              rgb_cuda)
-
+    counts as one pack.  A launch plan runs the same three launches; this
+    path serves the calls a mode or a tensor subclass watches (see
+    :func:`unwatched`), for which ``rgb_cuda`` dispatches the operator."""
     if is_packed:
         src, b, m = _dense(batch.L, dt), None, batch.m_pad
     else:
@@ -265,6 +295,204 @@ def _solve_fused(spec: SolverSpec, batch: AnyLPBatch, is_packed: bool,
     return LPSolution(x=x[:B], feasible=feasible, objective=objective)
 
 
+# -- launch plans --------------------------------------------------------------
+
+# Most launch plans kept; the oldest goes first.  The serving ladder's
+# buckets, each at a few batch rungs, and a caller's own shapes fit.
+PLAN_CACHE_SIZE = 256
+
+_plans: dict = {}
+_plan_lock = threading.Lock()
+_dispatch_modes = torch._C._len_torch_dispatch_stack
+_function_modes = torch._C._is_torch_function_mode_enabled
+_table = None
+
+
+def _table_version() -> int:
+    """The active tuning table's :func:`~repro_torch.tune.table_version`
+    (bound at first use: :mod:`repro_torch.tune` imports this package)."""
+    global _table
+    if _table is None:
+        from repro_torch.tune import table
+        _table = table
+    return _table.table_version()
+
+
+class PlanShape(NamedTuple):
+    """What a fused solve of one shape resolves to."""
+    spec: SolverSpec           # the spec pinned for the shape
+    tile: int
+    m_pad: int
+    b_pad: int
+    geometry: LaunchGeometry   # the kernel's launch
+
+
+def plan_shape(spec: SolverSpec, batch: int, m: int,
+               platform: str = "cuda") -> PlanShape:
+    """The fused path's per-call arithmetic for ``batch`` problems of
+    ``m`` constraints (an AoS batch's ``m``, a packed one's ``m_pad``):
+    :meth:`~SolverSpec.resolve_for_shape`, the tile, the padding to
+    ``LANE`` columns and to whole tiles, and :func:`~repro_torch.kernels.
+    batch_lp.launch_geometry`.  No card is asked; a plan holds the result
+    for every later call of its key."""
+    spec = spec.resolve_for_shape(m, batch, platform=platform)
+    tile = spec.tile or _pick_tile(batch)
+    m_pad = -(-m // LANE) * LANE
+    itemsize = _TORCH_DTYPES[spec.dtype].itemsize
+    return PlanShape(spec, tile, m_pad, -(-batch // tile) * tile,
+                     launch_geometry(m_pad, itemsize, tile))
+
+
+class _Plan(NamedTuple):
+    held: SolverSpec       # the caller's spec: its id is in the key
+    shape: PlanShape
+    launch: FusedLaunch
+    packed: bool
+    cast: bool             # an input is not yet in dtype, or not contiguous
+    fused: tuple           # ``_takes_fused``'s arguments for the plan
+
+
+def unwatched(tensors) -> bool:
+    """Whether an operation on ``tensors`` reaches nothing but the
+    dispatcher's kernels: each a plain ``torch.Tensor`` (no fake,
+    functional or other subclass), and no ``TorchDispatchMode``
+    (``FlopCounterMode``, the roofline's counters, fake mode) and no
+    ``TorchFunctionMode`` active.  Only then does a solve launch the kernel
+    without dispatching ``torch.ops.repro_torch.rgb``: whatever watches
+    the dispatcher sees the operator."""
+    if _dispatch_modes() or _function_modes():
+        return False
+    for t in tensors:
+        if type(t) is not torch.Tensor:
+            return False
+    return True
+
+
+def _plan_key(spec: SolverSpec, batch: AnyLPBatch,
+              generator: Optional[torch.Generator]) -> Optional[tuple]:
+    """The launch plan's key for a call, or ``None`` where the call cannot
+    take one (a shuffle; not unwatched CUDA tensors)."""
+    if generator is not None or spec.shuffle:
+        return None
+    packed = isinstance(batch, PackedLPBatch)
+    ts = ((batch.L, batch.c, batch.m_valid) if packed
+          else (batch.A, batch.b, batch.c, batch.m_valid))
+    if not unwatched(ts) or not ts[0].is_cuda:
+        return None
+    return _key(spec, packed, ts)
+
+
+def _key(spec: SolverSpec, packed: bool, tensors) -> tuple:
+    """The spec object (a plan holds it, so its id is not reused while
+    the plan lives), the table's version, the layout, and each tensor's
+    shape, dtype, card and contiguity."""
+    key = [id(spec), _table_version(), packed]
+    for t in tensors:
+        key += (t.shape, t.dtype, t.get_device(), t.is_contiguous())
+    return tuple(key)
+
+
+def _solve_keyed(spec: SolverSpec, batch: AnyLPBatch, key: tuple,
+                 top: Optional[Span]) -> LPSolution:
+    """A call with a plan key: from the key's plan, made on a miss where
+    the call takes the fused front end; else the eager chain."""
+    st = stage(top, None, "solve.cast")
+    plan = _plans.get(key)
+    if plan is not None and _takes_fused(*plan.fused):
+        return _run_plan(plan, batch, top, st, None)
+    packed = isinstance(batch, PackedLPBatch)
+    B, m = batch.batch, batch.m_pad if packed else batch.m
+    device = batch.device
+    shape = plan_shape(spec, B, m, device.type)
+    fused = (shape.spec, device, None, B, m)
+    if not _takes_fused(*fused):
+        stage(top, st, None)
+        return _solve_eager(shape.spec, batch, None, top)
+    dt = _TORCH_DTYPES[shape.spec.dtype]
+    cast = any(t is not None and (t.dtype != d or not t.is_contiguous())
+               for t, d in zip(_inputs(batch, packed),
+                               (dt, dt, dt, torch.int32)))
+    launch = FusedLaunch(dt, device, batch=B, m=m, m_pad=shape.m_pad,
+                         b_pad=shape.b_pad, tile=shape.tile,
+                         M=shape.spec.M, packed=packed,
+                         normalize=shape.spec.normalize,
+                         geometry=shape.geometry)
+    plan = _Plan(spec, shape, launch, packed, cast, fused)
+    return _run_plan(plan, batch, top, st, key)
+
+
+def _inputs(batch: AnyLPBatch, packed: bool) -> tuple:
+    """``(src, b, c, m_valid)`` as ``prep`` takes them (``b`` ``None``
+    for a packed batch)."""
+    if packed:
+        return batch.L, None, batch.c, batch.m_valid
+    return batch.A, batch.b, batch.c, batch.m_valid
+
+
+def _run_plan(plan: _Plan, batch: AnyLPBatch, top: Optional[Span],
+              st: Optional[Span], new_key: Optional[tuple]) -> LPSolution:
+    """Enqueue ``prep``, ``rgb`` and ``finish`` from ``plan``.  A new
+    plan (``new_key`` given) first runs the checks of ``prep_cuda``,
+    ``rgb_cuda`` and ``finish_cuda`` on this call's tensors and is kept
+    under ``new_key`` once its call has launched."""
+    launch, shape = plan.launch, plan.shape
+    index = launch.device.index
+    if current_card() != index:
+        with torch.cuda.device(index):
+            return _run_plan(plan, batch, top, st, new_key)
+    src, b, c, mv = _inputs(batch, plan.packed)
+    if not plan.packed:
+        count_pack()
+    if plan.cast or new_key is not None:
+        dt = launch.dtype
+        src, c, mv = _dense(src, dt), _dense(c, dt), _dense(mv, torch.int32)
+        if b is not None:
+            b = _dense(b, dt)
+    if new_key is not None:
+        _check_prep(src, b, c, mv, m_pad=shape.m_pad, b_pad=shape.b_pad)
+    if top is not None:
+        top.attrs.update(B=launch.batch, m_pad=shape.m_pad,
+                         backend=shape.spec.backend, tile=shape.tile,
+                         plan="hit" if new_key is None else "miss")
+    stream = raw_stream(index)
+    st = stage(top, st, "solve.normalize")
+    ws = launch.prep(src, b, c, mv, stream)
+    st = stage(top, st, "solve.launch")
+    if new_key is not None:
+        L, c, mv, _ = launch.views(ws)
+        _check_launch(L, c, mv, shape.tile, shape.spec.chunk or 0)
+    x = launch.rgb(ws, stream)
+    st = stage(top, st, "solve.objective")
+    B = launch.batch
+    if new_key is not None:
+        _, c, _, feas = launch.views(ws)
+        _check_finish(x, feas, c, B)
+    objective, feasible = launch.finish(x, ws, stream)
+    stage(top, st, None)
+    if new_key is None:
+        with _plan_lock:
+            solve_with_spec.plan_hits += 1
+    else:
+        _keep(new_key, plan)
+    return LPSolution(x=x if launch.b_pad == B else x[:B],
+                      feasible=feasible, objective=objective)
+
+
+def _keep(key: tuple, plan: _Plan) -> None:
+    """Cache ``plan`` under ``key`` (the oldest plan goes at the bound)
+    and count a miss."""
+    with _plan_lock:
+        solve_with_spec.plan_misses += 1
+        if key not in _plans and len(_plans) >= PLAN_CACHE_SIZE:
+            del _plans[next(iter(_plans))]
+        _plans[key] = plan
+
+
+# Fused solves that found their launch plan, and those that made it.
+solve_with_spec.plan_hits = 0
+solve_with_spec.plan_misses = 0
+
+
 class Solver:
     """Executor for one resolved :class:`SolverSpec` on one device.
 
@@ -287,6 +515,7 @@ class Solver:
         # resolved spec, so it pins "auto" to the platform default.
         self._solve_spec = spec if spec.backend == "auto" else self.spec
         self._shapes = set()
+        self._on_device = set()   # plan keys of batches already here
 
     # -- plain-function entry point ---------------------------------------
 
@@ -313,11 +542,22 @@ class Solver:
     def _solve_here(self, batch: AnyLPBatch,
                     generator: Optional[torch.Generator],
                     top: Optional[Span]) -> LPSolution:
-        batch = batch.to(self.device)
-        arr = batch.L if isinstance(batch, PackedLPBatch) else batch.A
-        self._shapes.add((type(batch).__name__, tuple(arr.shape),
-                          str(arr.dtype), generator is not None))
-        return _solve(self._solve_spec, batch, generator, top)
+        spec = self._solve_spec
+        key = _plan_key(spec, batch, generator)
+        if key is None or key not in self._on_device:
+            here = batch.to(self.device)
+            arr = here.L if isinstance(here, PackedLPBatch) else here.A
+            self._shapes.add((type(here).__name__, tuple(arr.shape),
+                              str(arr.dtype), generator is not None))
+            if here is not batch:
+                batch, key = here, _plan_key(spec, here, generator)
+            if key is not None:
+                if len(self._on_device) >= PLAN_CACHE_SIZE:
+                    self._on_device.clear()
+                self._on_device.add(key)
+        if key is None:
+            return _solve_eager(spec, batch, generator, top)
+        return _solve_keyed(spec, batch, key, top)
 
     def solve_one(self, A, b, c,
                   generator: Optional[torch.Generator] = None) -> LPSolution:

@@ -41,7 +41,7 @@ from repro_torch.tune.table import (SCHEMA_VERSION, TableEntry, TableKey,
                                     default_table,
                                     device_platform, lookup,
                                     normalize_device_kind, set_active_table,
-                                    use_table)
+                                    table_version, use_table)
 
 __all__ = [
     "Candidate", "SCHEMA_VERSION", "TableEntry", "TableKey",
@@ -52,6 +52,7 @@ __all__ = [
     "measure", "measure_stats", "measure_stats_many",
     "normalize_device_kind",
     "representative_batch", "results_to_entries", "set_active_table",
-    "time_candidate", "time_candidate_stats", "tune", "tune_shape",
+    "table_version", "time_candidate", "time_candidate_stats", "tune",
+    "tune_shape",
     "use_table", "winner_entries",
 ]

@@ -27,7 +27,9 @@ bundled default, optionally overlaid with the file named by the
 ``REPRO_TORCH_TUNE_TABLE`` environment variable; tests and callers can pin a
 specific table with :func:`set_active_table` or the :func:`use_table`
 context manager.  A lookup miss is never an error — resolution falls
-back to the static heuristics.
+back to the static heuristics.  :func:`table_version` counts every change
+of what resolution reads (a table swapped in, a ``put`` or ``merge`` into
+the active one), so a cache of resolved shapes can key on it.
 """
 from __future__ import annotations
 
@@ -176,6 +178,7 @@ class TuningTable:
 
     def put(self, entry: TableEntry) -> None:
         self._entries[entry.key] = entry
+        _changed(self)
 
     def get(self, key: TableKey) -> Optional[TableEntry]:
         return self._entries.get(key)
@@ -208,6 +211,7 @@ class TuningTable:
             band = max(entry.noise_band_us, mine.noise_band_us)
             if entry.us_per_lp < mine.us_per_lp - band:
                 self._entries[key] = entry
+        _changed(self)
         return self
 
     # -- lookup ----------------------------------------------------------
@@ -331,6 +335,23 @@ def check_round_trip(table: TuningTable) -> None:
 
 _lock = threading.Lock()
 _active: Optional[TuningTable] = None
+_version = 0
+
+
+def table_version() -> int:
+    """A number that changes whenever what :func:`active_table` resolves
+    against may have: a table set or swapped in (:func:`set_active_table`,
+    :func:`use_table` on entry and exit), or a ``put`` or ``merge`` into
+    the active table.  It never repeats within a process."""
+    return _version
+
+
+def _changed(table: Optional[TuningTable]) -> None:
+    """Bump the version if ``table`` is the active one."""
+    global _version
+    if table is _active:
+        with _lock:
+            _version += 1
 
 
 def default_table() -> TuningTable:
@@ -365,26 +386,29 @@ def active_table() -> TuningTable:
 def set_active_table(table: Optional[TuningTable]) -> None:
     """Pin the process-wide table (``None`` resets to lazy default).
 
-    The table is consulted on every solve (there is no per-shape
-    compile cache in the port), so a change takes effect at once.
+    The solver's launch plans key on :func:`table_version`, which this
+    bumps, so a change takes effect at the next solve.
     """
-    global _active
+    global _active, _version
     with _lock:
         _active = table
+        _version += 1
 
 
 @contextlib.contextmanager
 def use_table(table: Optional[TuningTable]):
     """Scoped :func:`set_active_table` (restores the previous table)."""
-    global _active
+    global _active, _version
     with _lock:
         prev = _active
         _active = table
+        _version += 1
     try:
         yield table
     finally:
         with _lock:
             _active = prev
+            _version += 1
 
 
 def lookup(*, backend: str, dtype: str, m: int,

@@ -343,6 +343,82 @@ def test_fused_solve_equals_the_eager_front_end_in_bits(card, dtype,
             assert torch.equal(_bits(sol.objective), _bits(eager.objective))
 
 
+def _front_counts():
+    return (batch_lp.prep_cuda.launches, rgb_cuda.launches,
+            batch_lp.finish_cuda.launches)
+
+
+@pytest.mark.parametrize("m", [3, 256, 2048])
+@pytest.mark.parametrize("B", [1, 7, 16384])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("layout", ["aos", "packed"])
+def test_planned_solve_equals_the_op_path_and_the_eager_chain(
+        card, layout, dtype, B, m, monkeypatch):
+    """A solve from its launch plan, on the call that makes the plan (a
+    miss) and on a repeat (a hit), against the same solve through the
+    operator (``_solve_fused``, as under a mode) and through the eager
+    chain: x, feasible and objective equal bit for bit.  Each planned call
+    counts one prep, one rgb (and its geometry) and one finish launch;
+    the repeat counts a plan hit; ``Solver.solve`` takes the same plan."""
+    from repro_torch.solver import solver as S
+    g = torch.Generator().manual_seed(B * 4099 + m)
+    lp = random_feasible_lp(g, B, m, dtype=dtype, device=card)
+    batch = lp.pack() if layout == "packed" else lp
+    spec = SolverSpec(backend="kernel", dtype=str(dtype)[6:])
+    shape = S.plan_shape(spec, B, batch.m_pad if layout == "packed" else m)
+    gkey = (shape.b_pad, shape.m_pad, str(dtype)[6:], shape.tile)
+    sols = []
+    for hit in (False, True):
+        n0, g0 = _front_counts(), rgb_cuda.geometries.get(gkey, 0)
+        h0, m0 = S.solve_with_spec.plan_hits, S.solve_with_spec.plan_misses
+        sols.append(solve_with_spec(spec, batch))
+        assert _front_counts() == tuple(v + 1 for v in n0)
+        assert rgb_cuda.geometries[gkey] == g0 + 1
+        assert (S.solve_with_spec.plan_hits,
+                S.solve_with_spec.plan_misses) == (h0 + hit, m0 + 1 - hit)
+    h0 = S.solve_with_spec.plan_hits
+    solver = spec.build()
+    sols += [solver.solve(batch), solver.solve(batch)]
+    assert S.solve_with_spec.plan_hits >= h0 + 1
+    with monkeypatch.context() as mp:
+        mp.setattr(S, "unwatched", lambda tensors: False)
+        h0, n0 = S.solve_with_spec.plan_hits, _front_counts()
+        op = solve_with_spec(spec, batch)
+        assert S.solve_with_spec.plan_hits == h0
+        assert _front_counts() == tuple(v + 1 for v in n0)
+    with monkeypatch.context() as mp:
+        mp.setattr(S, "_takes_fused", lambda *a: False)
+        n0 = _front_counts()
+        eager = solve_with_spec(spec, batch)
+        assert _front_counts()[0::2] == n0[0::2]     # no prep, no finish
+    for sol in sols + [op]:
+        assert sol.x.shape == eager.x.shape == (B, 2)
+        assert torch.equal(_bits(sol.x), _bits(eager.x))
+        assert torch.equal(sol.feasible, eager.feasible)
+        assert torch.equal(_bits(sol.objective), _bits(eager.objective))
+
+
+def test_a_flop_counter_still_counts_the_operator_once(card):
+    """Under ``FlopCounterMode`` a solve on the card dispatches
+    ``repro_torch::rgb`` (the planned path steps aside for modes): the
+    counter sees one call's FLOPs, and the kernel launches once."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.solver import solver as S
+    g = torch.Generator().manual_seed(4)
+    lp = random_feasible_lp(g, 64, 100, device=card)
+    spec = SolverSpec(backend="kernel")
+    solve_with_spec(spec, lp)                   # a plan for this key
+    h0, n0 = S.solve_with_spec.plan_hits, rgb_cuda.launches
+    with FlopCounterMode(display=False) as fc:
+        solve_with_spec(spec, lp)
+    torch.cuda.synchronize()
+    counts = fc.get_flop_counts()["Global"]
+    assert [str(k) for k in counts] == ["repro_torch.rgb"]
+    assert fc.get_total_flops() == int(batch_lp.rgb_flops(64, LANE))
+    assert rgb_cuda.launches == n0 + 1
+    assert S.solve_with_spec.plan_hits == h0
+
+
 def test_finish_writes_the_eager_objective_in_bits(card):
     """``finish_cuda`` against ``(c * x).sum(-1)`` and ``feas != 0`` on
     values that round apart, signed zeros included."""

@@ -327,6 +327,168 @@ def test_only_the_kernel_on_the_card_takes_the_fused_front_end(case, fused):
                         case.get("batch", 16), case.get("m", 8)) is fused
 
 
+# -- the fused path's launch plans ---------------------------------------------
+
+@pytest.mark.parametrize("kw", [dict(), dict(tile=16), dict(chunk=128),
+                                dict(tile=4, chunk=128)])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("m", [3, 64, 256, 2048])
+@pytest.mark.parametrize("B", [1, 7, 16384])
+@pytest.mark.parametrize("layout", ["aos", "packed"])
+def test_plan_shape_is_what_each_call_resolved(layout, B, m, dtype, kw):
+    """A plan holds what the fused path resolved on every call before it:
+    the spec pinned for the shape (a packed batch is keyed by its padded
+    width), the tile, the padding to LANE columns and whole tiles, and the
+    kernel's launch geometry."""
+    from repro_torch.kernels.batch_lp import LANE, _pick_tile, launch_geometry
+    from repro_torch.solver.solver import plan_shape
+    width = -(-m // LANE) * LANE if layout == "packed" else m
+    spec = ts.SolverSpec(backend="kernel", dtype=dtype, **kw)
+    want = spec.resolve_for_shape(width, B, platform="cuda")
+    tile = want.tile or _pick_tile(B)
+    m_pad = -(-width // LANE) * LANE
+    got = plan_shape(spec, B, width)
+    assert got.spec == want
+    assert (got.tile, got.m_pad, got.b_pad) == (
+        tile, m_pad, -(-B // tile) * tile)
+    assert got.geometry == launch_geometry(
+        m_pad, 4 if dtype == "float32" else 8, tile)
+    assert got.b_pad % got.tile == 0 and got.m_pad % LANE == 0
+
+
+def test_a_table_change_makes_a_new_plan():
+    """The key carries the active table's version: a table swapped in by
+    ``use_table`` (and out again), a ``put`` or a ``merge`` into the active
+    table each give a new key, and the plan made for it resolves the new
+    tile at once; a ``put`` into a table that is not active changes
+    nothing."""
+    from repro_torch.solver.solver import _key, plan_shape
+    from repro_torch.tune import current_device_kind, table_version
+    spec = ts.SolverSpec(backend="kernel")
+    lp = tc.infeasible_lp(64, 200, device="cpu")
+    tensors = (lp.A, lp.b, lp.c, lp.m_valid)
+    key = lambda: _key(spec, False, tensors)
+    kind = current_device_kind()      # what a solve on the card looks up
+    row = lambda tile: TableEntry(TableKey(kind, "kernel", "float32",
+                                           m_bucket=256, batch_bucket=64),
+                                  tile=tile, chunk=0, us_per_lp=1.0)
+    with use_table(TuningTable()):
+        k0 = key()
+        assert key() == k0 and plan_shape(spec, 64, 200).tile == DEFAULT_TILE
+        idle = TuningTable()
+        idle.put(row(2))
+        assert key() == k0
+    with use_table(TuningTable([row(4)])) as table:
+        k1 = key()
+        assert k1 != k0 and plan_shape(spec, 64, 200).tile == 4
+        table.put(row(16))
+        k2 = key()
+        assert k2 != k1 and plan_shape(spec, 64, 200).tile == 16
+        table.merge(TuningTable([row(32)]))
+        assert key() != k2
+    assert key() not in (k0, k1, k2)
+    v = table_version()
+    ts.SolverSpec(backend="kernel").resolve_for_shape(200, 64, "cuda")
+    assert table_version() == v          # a lookup is no change
+
+
+def test_only_unwatched_tensors_take_the_direct_launch():
+    """The routing rule of the planned path: plain tensors with no mode
+    active launch the kernel directly; a ``FlopCounterMode``, any other
+    dispatch mode, a function mode (``torch.device`` as a context is one),
+    fake tensors and tensor subclasses keep ``torch.ops.repro_torch.rgb``,
+    so whatever counts the dispatcher's operators sees it."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.overrides import TorchFunctionMode
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.solver.solver import unwatched
+
+    class Passing(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            return func(*args, **(kwargs or {}))
+
+    class Functions(TorchFunctionMode):
+        pass
+
+    t = (torch.zeros(4, 3, 2), torch.zeros(4, 3), torch.zeros(4, 2))
+    assert unwatched(t)
+    for mode in (FlopCounterMode(display=False), Passing(), Functions(),
+                 torch.device("cpu")):
+        with mode:
+            assert not unwatched(t)
+    assert unwatched(t)
+    with FakeTensorMode() as fake:
+        ft = tuple(fake.from_tensor(x) for x in t)
+    assert not unwatched(ft)
+    assert not unwatched(t[:2] + (torch.nn.Parameter(t[2]),))
+
+
+@pytest.mark.parametrize("case", ["cpu", "generator", "shuffle"])
+def test_no_plan_key_off_the_card_or_under_a_shuffle(case):
+    """A plan serves only unshuffled solves on the card: on the CPU, with
+    a generator or under a shuffled spec the call has no key and runs as
+    before."""
+    from repro_torch.solver.solver import _plan_key
+    spec = ts.SolverSpec(backend="kernel", shuffle=case == "shuffle")
+    gen = torch.Generator() if case == "generator" else None
+    lp = tc.infeasible_lp(8, 6, device="cpu")
+    assert _plan_key(spec, lp, gen) is None
+    assert _plan_key(spec, lp.pack(), gen) is None
+
+
+def test_the_plan_cache_is_bounded(monkeypatch):
+    """``_keep`` holds at most ``PLAN_CACHE_SIZE`` plans, dropping the
+    oldest first, and counts each plan it keeps as a miss."""
+    from repro_torch.solver import solver as S
+    monkeypatch.setattr(S, "_plans", {})
+    n0 = S.solve_with_spec.plan_misses
+    extra = 5
+    for i in range(S.PLAN_CACHE_SIZE + extra):
+        S._keep(("key", i), f"plan {i}")
+    assert len(S._plans) == S.PLAN_CACHE_SIZE
+    assert all(("key", i) not in S._plans for i in range(extra))
+    assert S._plans[("key", S.PLAN_CACHE_SIZE + extra - 1)] == \
+        f"plan {S.PLAN_CACHE_SIZE + extra - 1}"
+    S._keep(("key", extra), "again")             # an update evicts none
+    assert len(S._plans) == S.PLAN_CACHE_SIZE and ("key", extra + 1) in \
+        S._plans
+    assert S.solve_with_spec.plan_misses == n0 + S.PLAN_CACHE_SIZE + extra + 1
+
+
+def test_the_plan_cache_under_threads(monkeypatch):
+    """Threads that keep plans at once (the scheduler's dispatch threads
+    share the cache) lose no count and never pass the bound."""
+    import sys
+    import threading
+    from repro_torch.solver import solver as S
+    monkeypatch.setattr(S, "_plans", {})
+    n0 = S.solve_with_spec.plan_misses
+    workers, each = 16, 200
+    go = threading.Barrier(workers)
+
+    def keep(w):
+        go.wait()
+        for i in range(each):
+            S._keep((w, i % 40), i)
+            assert len(S._plans) <= S.PLAN_CACHE_SIZE
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=keep, args=(w,))
+                   for w in range(workers)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60.0)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert S.solve_with_spec.plan_misses == n0 + workers * each
+    assert len(S._plans) == S.PLAN_CACHE_SIZE
+
+
 def test_solver_bookkeeping_and_shared_instances():
     solver = ts.SolverSpec(backend="rgb").build(device="cpu")
     mk = lambda b: tc.infeasible_lp(b, 6, device="cpu")
